@@ -1,0 +1,118 @@
+"""Shared kernel utilities: device dispatch, the CUDA build, launch checks.
+
+The port's kernels are CUDA C++ under ``csrc/`` with a plain C interface.
+They are compiled with ``nvcc`` for ``sm_90a`` into one shared library on
+first use, into ``_build/<hash of the sources>/`` beside this file, and
+loaded with ``ctypes``. Nothing here runs at import: the CPU tests import
+every module on machines without ``nvcc`` or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "libelx_kernels.so"
+
+#: kernel dtype codes shared with csrc/*.cu
+DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on a CUDA device, False when every one
+    lies on the CPU (the counterpart of the JAX package's ``on_tpu``).
+    Kernel wrappers branch on it: CPU tensors take the plain version, CUDA
+    tensors the kernel. A mix, or another device type, raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"tensors on unsupported or mixed devices: {kinds}")
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+
+
+@functools.cache
+def kernel_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library. The build goes to a
+    temporary name and is renamed into place, so concurrent first uses do
+    not see a half-written file; nvcc's report (registers, shared memory,
+    spills from -Xptxas -v) is kept beside it as build.log."""
+    so = library_path()
+    if not so.exists():
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        (so.parent / "build.log").write_text(
+            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (rc={proc.returncode}):\n{proc.stderr[-8000:]}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    lib.elx_error_string.argtypes = [ctypes.c_int]
+    lib.elx_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def kernel_function(name: str, argtypes: tuple):
+    """One C entry of the kernel library with its ctypes signature; every
+    entry returns a cudaError_t as int."""
+    fn = getattr(kernel_library(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(rc: int, name: str) -> None:
+    """Raise when a C entry reports a CUDA error (launch refused, bad
+    configuration, or a fault surfaced by an earlier call)."""
+    if rc != 0:
+        msg = kernel_library().elx_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def current_stream(t: torch.Tensor) -> int:
+    """The raw cudaStream_t of PyTorch's current stream on t's device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
