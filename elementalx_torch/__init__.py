@@ -6,9 +6,11 @@ JAX package wrote in Pallas for the TPU becomes a CUDA kernel written by
 hand for Hopper (``elementalx_torch/kernels``), each with a plain PyTorch
 version that CPU tensors take. This package never imports JAX.
 
-This first slice covers the HPD-solve main path: a one-device Grid, an
-[MC,MR] DistMatrix, Gemm, Trsm, Cholesky and HPDSolve. The namespace is
-flat, as the reference's El:: is.
+The ported slices: the HPD-solve main path (a one-device Grid, an
+[MC,MR] DistMatrix, Gemm, Trsm, Cholesky and HPDSolve) and the LU path
+(Permutation, LU, LUFullPiv, LUMod and LinearSolve). The namespace is
+flat, as the reference's El:: is; the top-level SolveAfter is the
+Cholesky one, and the LU one is ``lapack.lu.SolveAfter``.
 """
 
 __version__ = "0.1.0"
@@ -37,4 +39,13 @@ from .blas import (  # noqa: F401,E402
     Transpose,
     Trsm,
 )
-from .lapack import Cholesky, HPDSolve, SolveAfter  # noqa: F401,E402
+from .lapack import (  # noqa: F401,E402
+    LU,
+    Cholesky,
+    HPDSolve,
+    LinearSolve,
+    LUFullPiv,
+    LUMod,
+    Permutation,
+    SolveAfter,
+)

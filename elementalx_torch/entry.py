@@ -1,9 +1,13 @@
-"""The HPD-solve main path as one step.
+"""The ported main paths as steps: the HPD solve and the LU solve.
 
 Counterpart of ``__graft_entry__.entry()``: an HPD solve (Cholesky and two
 triangular solves), the residual Gemm R = B - A X, and its norm, on a
 one-device grid. ``entry`` returns the step and an example problem, as
 the JAX version returns its jittable step and example arguments.
+``linear_solve_step`` is the counterpart of its LU + SolveAfter pair
+(``__graft_entry__.py:116-117``) and of ``bench.py``'s LU row: LinearSolve,
+the residual Gemm and its norm, on a general matrix from
+``make_lu_problem``.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from .blas import Gemm, Nrm2
 from .core.dmatrix import DistMatrix
 from .core.grid import Grid
 from .core.types import LOWER, NORMAL
-from .lapack import HPDSolve
+from .lapack import HPDSolve, LinearSolve
 
 
 def make_hpd_problem(n: int, nrhs: int, dtype: torch.dtype = torch.float32,
@@ -45,6 +49,34 @@ def hpd_solve_step(a: torch.Tensor, b: torch.Tensor,
     A = DistMatrix.from_global(a, grid=grid)
     B = DistMatrix.from_global(b, grid=grid)
     X = HPDSolve(LOWER, NORMAL, A, B)
+    R = Gemm(NORMAL, NORMAL, -1.0, A, X, beta=1.0, C=B)
+    return X.data, Nrm2(R)
+
+
+def make_lu_problem(n: int, nrhs: int, dtype: torch.dtype = torch.float32,
+                    device: Union[torch.device, str, None] = None,
+                    seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a, b), both standard normal, drawn on ``device`` from a generator
+    seeded with ``seed``. A general matrix, so that partial pivoting
+    really happens (bench.py times LU on the SPD Cholesky input, where
+    almost every pivot is the diagonal)."""
+    dev = torch.device(device) if device is not None else Grid.default().device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((n, n), generator=gen, device=dev)
+    b = torch.randn((n, nrhs), generator=gen, device=dev)
+    return a.to(dtype), b.to(dtype)
+
+
+def linear_solve_step(a: torch.Tensor, b: torch.Tensor,
+                      grid: Optional[Grid] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """X = A \\ B through LinearSolve (LU with partial pivoting and two
+    triangular solves), then ||B - A X|| through Gemm and Nrm2. Returns
+    (X's padded data, the residual norm)."""
+    grid = grid or Grid(a.device)
+    A = DistMatrix.from_global(a, grid=grid)
+    B = DistMatrix.from_global(b, grid=grid)
+    X = LinearSolve(A, B)
     R = Gemm(NORMAL, NORMAL, -1.0, A, X, beta=1.0, C=B)
     return X.data, Nrm2(R)
 

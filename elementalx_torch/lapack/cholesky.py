@@ -83,8 +83,9 @@ def _chol_lower_left(a: torch.Tensor, nb: int,
 
 def _set_pad_diag(d: torch.Tensor, m: int, val) -> torch.Tensor:
     """Set the padding diagonal (rows/cols >= m) of ``d`` to ``val``, in
-    place, and return ``d``."""
-    M = d.shape[0]
+    place, and return ``d`` (the JAX code's masked where over the whole
+    array)."""
+    M = min(d.shape)
     if M > m:
         idx = torch.arange(m, M, device=d.device)
         d[idx, idx] = val

@@ -1,5 +1,5 @@
-"""Port parity: the kernels K1 (local GEMM) and K3a (Cholesky diagonal
-block).
+"""Port parity: the kernels K1 (local GEMM), K3a (Cholesky diagonal
+block) and K4 (pivoted LU panel).
 
 On the CPU each wrapper takes its plain PyTorch version; those are held
 against the JAX package's Pallas kernels run in interpret mode, as the JAX
@@ -15,6 +15,12 @@ import pytest
 import torch
 
 from elementalx_torch.kernels import common
+from elementalx_torch.kernels.getrf import (
+    getrf_panel,
+    getrf_panel_plain,
+    lu_plain,
+    packed_getrf,
+)
 from elementalx_torch.kernels.matmul import matmul, matmul_plain
 from elementalx_torch.kernels.potrf import (
     padded_order,
@@ -174,6 +180,117 @@ def test_padded_order():
 
 
 # ---------------------------------------------------------------------------
+# K4 on the CPU: the plain version against the JAX kernel and jax's LU
+# ---------------------------------------------------------------------------
+
+
+def _check_marked_contract(a, out, piv):
+    """(error, max|L|) of getrf_panel's contract: the w elected rows are
+    distinct, and gathering them first and the rest after them (the
+    marked layout read as LAPACK packed) gives P A = L U."""
+    Mt, w = a.shape
+    out = np.asarray(out, np.float64)
+    piv = np.asarray(piv)
+    assert len(set(piv.tolist())) == w
+    lperm = np.concatenate([piv, np.setdiff1d(np.arange(Mt), piv)])
+    packed = out[lperm]
+    L = np.tril(packed, -1)[:, :w] + np.eye(Mt, w)
+    U = np.triu(packed[:w, :])
+    a = np.asarray(a, np.float64)
+    err = np.abs(a[lperm] - L @ U).max() / max(np.abs(a).max(), 1.0)
+    return err, np.abs(L).max()
+
+
+def test_getrf_plain_vs_pallas_interpret():
+    """(384, 256) f32, as the JAX package's own kernel test runs it:
+    both contracts (rows in place with piv; LAPACK packed with lperm).
+    Pivots are identical on this input; the factors agree to 1e-4 of
+    max|A| (float32 eliminations in another order over 256 columns)."""
+    import jax
+    import jax.numpy as jnp
+    from elementalx.kernels.getrf import getrf_panel as jgetrf
+    from elementalx.kernels.getrf import pallas_getrf
+
+    rng = np.random.default_rng(20)
+    a = rng.standard_normal((384, 256)).astype(np.float32)
+    jout, jpiv = (np.asarray(x) for x in jax.jit(
+        lambda x: jgetrf(x, interpret=True))(jnp.asarray(a)))
+    jpk, jlp = (np.asarray(x) for x in jax.jit(
+        lambda x: pallas_getrf(x, interpret=True))(jnp.asarray(a)))
+    out, piv = getrf_panel(torch.tensor(a))
+    pk, lp = packed_getrf(torch.tensor(a))
+    assert out.dtype == torch.float32 and piv.dtype == torch.int64
+    np.testing.assert_array_equal(piv.numpy(), jpiv)
+    np.testing.assert_array_equal(lp.numpy(), jlp)
+    scale = np.abs(a).max()
+    assert np.abs(out.numpy() - jout).max() < 1e-4 * scale
+    assert np.abs(pk.numpy() - jpk).max() < 1e-4 * scale
+    err, lmax = _check_marked_contract(a, out.numpy(), piv.numpy())
+    assert err < 1e-5 and lmax <= 1 + 1e-6
+
+
+def test_lu_plain_vs_jax_lu_f64():
+    """(300, 200) f64: the plain version against jax.lax.linalg.lu, the
+    JAX package's CPU route: identical lperm, packed factor within
+    1e-12."""
+    import jax
+
+    rng = np.random.default_rng(21)
+    a = rng.standard_normal((300, 200))
+    jlu, _, jperm = (np.asarray(x) for x in jax.lax.linalg.lu(a))
+    pk, lp = lu_plain(torch.tensor(a))
+    np.testing.assert_array_equal(lp.numpy(), jperm)
+    assert np.abs(pk.numpy() - jlu).max() < 1e-12 * np.abs(jlu).max()
+    out, piv = getrf_panel_plain(torch.tensor(a))
+    np.testing.assert_array_equal(piv.numpy(), jperm[:200])
+    np.testing.assert_array_equal(out.numpy()[jperm], pk.numpy())
+
+
+@pytest.mark.parametrize("shape", [(1000, 200), (33, 33), (70, 3), (5, 1)])
+def test_getrf_plain_marked_contract(shape):
+    """Ragged shapes, float64: the marked-row contract and P A = L U to
+    1e-13 of max|A|; packed_getrf lists the unelected rows ascending."""
+    a = np.random.default_rng(22).standard_normal(shape)
+    out, piv = getrf_panel(torch.tensor(a))
+    err, lmax = _check_marked_contract(a, out.numpy(), piv.numpy())
+    assert err < 1e-13 and lmax <= 1 + 1e-12
+    pk, lp = packed_getrf(torch.tensor(a))
+    rest = lp.numpy()[shape[1]:]
+    assert np.all(np.diff(rest) > 0)
+    np.testing.assert_array_equal(lp.numpy()[: shape[1]], piv.numpy())
+
+
+def test_getrf_plain_zero_pivot_divides_by_one():
+    """A singular panel (a zero column after elimination) factors without
+    NaN or error, as the JAX kernel's ``safe`` pivot does."""
+    a = np.zeros((6, 3))
+    a[:, 0] = [1, 2, 3, 4, 5, 6]
+    a[:, 2] = [1, 0, 2, 0, 3, 0]
+    a[:, 1] = 2 * a[:, 0]  # column 1 is eliminated to exact zeros
+    out, piv = getrf_panel(torch.tensor(a))
+    assert bool(torch.isfinite(out).all())
+    err, _ = _check_marked_contract(a, out.numpy(), piv.numpy())
+    assert err < 1e-14
+
+
+def test_getrf_plain_complex_on_cpu():
+    rng = np.random.default_rng(23)
+    a = rng.standard_normal((40, 16)) + 1j * rng.standard_normal((40, 16))
+    pk, lp = packed_getrf(torch.tensor(a))
+    pkc = pk.numpy()
+    L = np.tril(pkc, -1)[:, :16] + np.eye(40, 16)
+    U = np.triu(pkc[:16])
+    assert np.abs(a[lp.numpy()] - L @ U).max() < 1e-13 * np.abs(a).max()
+
+
+def test_getrf_cpu_tensors_count_nothing():
+    before = getrf_panel.launches
+    getrf_panel(torch.eye(4))
+    packed_getrf(torch.eye(4))
+    assert getrf_panel.launches == before
+
+
+# ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -291,3 +408,84 @@ def test_non_hpd_on_card_raises(cuda):
     with pytest.raises(Et.NonHPDMatrixException):
         Et.Cholesky(Et.LOWER, Et.DistMatrix.from_global(a, grid=Et.Grid(cuda)),
                     blocksize=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Mt,w,dt", [
+    (1000, 200, torch.float32), (4096, 512, torch.float64),
+    (16384, 512, torch.float32), (33, 33, torch.float64),
+    (70, 3, torch.float64), (512, 512, torch.float32),
+    # more rows than threads per CTA; a row share too big for shared memory
+    (40000, 64, torch.float32), (120000, 32, torch.float64),
+])
+def test_getrf_kernel_vs_plain(cuda, Mt, w, dt):
+    """K4 against torch.linalg.lu_factor on the card. Checked in float64:
+    lperm a permutation, max|P A - L U| <= tol max|A| (float32: 1e-5,
+    about 100 eps for rows of 512 Gaussian entries; float64: 1e-13) and
+    |L| <= 1 + tol. float64 pivots are identical to the plain version's;
+    float32 ones may differ on near-ties and are not compared."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.randn((Mt, w), generator=g, device=cuda,
+                    dtype=torch.float64).to(dt)
+    before = getrf_panel.launches
+    out, piv = getrf_panel(a)
+    pk, lp = packed_getrf(a)
+    torch.cuda.synchronize()
+    assert getrf_panel.launches == before + 2
+    tol = 1e-5 if dt == torch.float32 else 1e-13
+    err, lmax = _check_marked_contract(a.cpu().numpy(), out.cpu().numpy(),
+                                       piv.cpu().numpy())
+    assert err <= tol and lmax <= 1 + tol
+    assert sorted(lp.cpu().tolist()) == list(range(Mt))
+    np.testing.assert_array_equal(lp[:w].cpu().numpy(), piv.cpu().numpy())
+    if dt == torch.float64:
+        _, ref_piv = getrf_panel_plain(a)
+        assert torch.equal(piv, ref_piv)
+
+
+@pytest.mark.cuda
+def test_getrf_kernel_zero_pivot(cuda):
+    """A zero column divides by 1 on the card too: no NaN, P A = L U."""
+    a = torch.zeros((300, 40), dtype=torch.float64)
+    a[:, 0] = torch.arange(1, 301, dtype=torch.float64)
+    a[:, 5] = 3 * a[:, 0]
+    a[:, 6:] = torch.randn((300, 34), dtype=torch.float64,
+                           generator=torch.Generator().manual_seed(3))
+    out, piv = getrf_panel(a.to(cuda))
+    assert bool(torch.isfinite(out).all())
+    err, _ = _check_marked_contract(a.numpy(), out.cpu().numpy(),
+                                    piv.cpu().numpy())
+    assert err < 1e-13
+
+
+@pytest.mark.cuda
+def test_getrf_kernel_refuses_complex(cuda):
+    a = torch.ones((8, 4), dtype=torch.complex64, device=cuda)
+    with pytest.raises(NotImplementedError):
+        getrf_panel(a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_linear_solve_on_card(cuda, dt):
+    """LinearSolve at n=1024 on the card: K4 for every sub-panel (eight
+    128-wide panels), K1 for the products; the scaled backward error
+    ||B - A X||_inf / (eps n ||A||_inf ||X||_inf) below 100, and X within
+    1e-10 (float64) of the same step on the CPU."""
+    from elementalx_torch.entry import linear_solve_step, make_lu_problem
+    from elementalx_torch.kernels.matmul import matmul
+
+    n = 1024
+    a, b = make_lu_problem(n, 8, dtype=dt, device=cuda, seed=4)
+    k4, k1 = getrf_panel.launches, matmul.launches
+    x, nrm = linear_solve_step(a, b)
+    torch.cuda.synchronize()
+    assert getrf_panel.launches - k4 == 8 and matmul.launches > k1
+    ad, xd, bd = a.double(), x.double(), b.double()
+    eps = torch.finfo(dt).eps
+    berr = ((bd - ad @ xd).abs().sum(1).max()
+            / (eps * n * ad.abs().sum(1).max() * xd.abs().sum(1).max()))
+    assert float(berr) < 100
+    if dt == torch.float64:
+        x_cpu, _ = linear_solve_step(a.cpu(), b.cpu())
+        assert (x.cpu() - x_cpu).abs().max() <= 1e-10 * x_cpu.abs().max()
