@@ -7,8 +7,10 @@ hand for Hopper (``elementalx_torch/kernels``), each with a plain PyTorch
 version that CPU tensors take. This package never imports JAX.
 
 The ported slices: the HPD-solve main path (a one-device Grid, an
-[MC,MR] DistMatrix, Gemm, Trsm, Cholesky and HPDSolve) and the LU path
-(Permutation, LU, LUFullPiv, LUMod and LinearSolve). The namespace is
+[MC,MR] DistMatrix, Gemm, Trsm, Cholesky and HPDSolve), the LU path
+(Permutation, LU, LUFullPiv, LUMod and LinearSolve) and the HermitianEig
+path (HermitianTridiag, HermitianTridiagEig, HermitianEig and its subset
+forms). The namespace is
 flat, as the reference's El:: is; the top-level SolveAfter is the
 Cholesky one, and the LU one is ``lapack.lu.SolveAfter``.
 """
@@ -42,6 +44,12 @@ from .blas import (  # noqa: F401,E402
 from .lapack import (  # noqa: F401,E402
     LU,
     Cholesky,
+    HermitianEig,
+    HermitianEigCtrl,
+    HermitianEigSubset,
+    HermitianEigValueSubset,
+    HermitianTridiag,
+    HermitianTridiagEig,
     HPDSolve,
     LinearSolve,
     LUFullPiv,

@@ -7,7 +7,10 @@ the JAX version returns its jittable step and example arguments.
 ``linear_solve_step`` is the counterpart of its LU + SolveAfter pair
 (``__graft_entry__.py:116-117``) and of ``bench.py``'s LU row: LinearSolve,
 the residual Gemm and its norm, on a general matrix from
-``make_lu_problem``.
+``make_lu_problem``. ``hermitian_eig_step`` is the counterpart of
+``bench.py``'s HermitianEig row (BASELINE config 4): HermitianEig, the
+residual product H Q through Gemm, and the scaled residual, on a matrix
+from ``make_eig_problem``.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from .blas import Gemm, Nrm2
 from .core.dmatrix import DistMatrix
 from .core.grid import Grid
 from .core.types import LOWER, NORMAL
-from .lapack import HPDSolve, LinearSolve
+from .lapack import HermitianEig, HPDSolve, LinearSolve
+from .lapack.hermitian_eig import HermitianEigCtrl
 
 
 def make_hpd_problem(n: int, nrhs: int, dtype: torch.dtype = torch.float32,
@@ -79,6 +83,37 @@ def linear_solve_step(a: torch.Tensor, b: torch.Tensor,
     X = LinearSolve(A, B)
     R = Gemm(NORMAL, NORMAL, -1.0, A, X, beta=1.0, C=B)
     return X.data, Nrm2(R)
+
+
+def make_eig_problem(n: int, dtype: torch.dtype = torch.float32,
+                     device: Union[torch.device, str, None] = None,
+                     seed: int = 0) -> torch.Tensor:
+    """h = (g + g^T) / sqrt(8 n) for a standard normal g drawn on
+    ``device`` from a generator seeded with ``seed``, as bench.py builds
+    its HermitianEig input (its spectrum fills about [-1, 1])."""
+    dev = torch.device(device) if device is not None else Grid.default().device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn((n, n), generator=gen, device=dev)
+    return ((g + g.mT) / math.sqrt(8 * n)).to(dtype)
+
+
+def hermitian_eig_step(h: torch.Tensor,
+                       ctrl: Optional[HermitianEigCtrl] = None,
+                       grid: Optional[Grid] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """w, Q = HermitianEig(h), then H Q through Gemm. Returns (w, Q's
+    n x n data, the scaled residual max|HQ - QW| / (eps n max|w|)) with
+    eps of h's dtype, as bench.py scores its HermitianEig row; the
+    residual is a 0-d tensor on h's device."""
+    grid = grid or Grid(h.device)
+    n = h.shape[0]
+    H = DistMatrix.from_global(h, grid=grid)
+    w, Q = HermitianEig(LOWER, H, vectors=True, ctrl=ctrl)
+    R = Gemm(NORMAL, NORMAL, 1.0, H, Q)
+    q = Q.data[:n, :n]
+    D = R.data[:n, :n] - q * w[None, :]
+    eps = torch.finfo(h.dtype).eps
+    return w, q, torch.max(torch.abs(D)) / (eps * n * torch.max(torch.abs(w)))
 
 
 def entry(n: int = 256, nrhs: int = 16, dtype: torch.dtype = torch.float32,

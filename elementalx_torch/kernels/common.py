@@ -22,7 +22,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libelx_kernels.so"
 
 #: kernel dtype codes shared with csrc/*.cu
@@ -72,22 +72,44 @@ def library_path() -> Path:
 
 @functools.cache
 def kernel_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library. The build goes to a
-    temporary name and is renamed into place, so concurrent first uses do
-    not see a half-written file; nvcc's report (registers, shared memory,
-    spills from -Xptxas -v) is kept beside it as build.log."""
+    """Build (if needed) and load the kernel library. Every source is
+    compiled by its own nvcc, all started together, and the objects are
+    linked into one library. The build goes to a temporary name and is
+    renamed into place, so concurrent first uses do not see a half-written
+    file; nvcc's report (registers, shared memory, spills from -Xptxas -v)
+    is kept beside it as build.log."""
     so = library_path()
     if not so.exists():
         so.parent.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (so.parent / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (rc={proc.returncode}):\n{proc.stderr[-8000:]}")
+        tag = f"{os.getpid()}.tmp"
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = so.parent / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        tmp = so.with_name(f"{LIB_NAME}.{tag}")
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                *[str(o) for o in objs]]
+        log, failed = [], []
+        for cmd, proc in procs:
+            out = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(out)
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.stderr)
+        (so.parent / "build.log").write_text("\n".join(log))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-8000:])
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     lib.elx_error_string.argtypes = [ctypes.c_int]

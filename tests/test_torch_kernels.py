@@ -1,5 +1,5 @@
 """Port parity: the kernels K1 (local GEMM), K3a (Cholesky diagonal
-block) and K4 (pivoted LU panel).
+block), K4 (pivoted LU panel), K5 (latrd panel) and K6 (bulge chase).
 
 On the CPU each wrapper takes its plain PyTorch version; those are held
 against the JAX package's Pallas kernels run in interpret mode, as the JAX
@@ -21,12 +21,14 @@ from elementalx_torch.kernels.getrf import (
     lu_plain,
     packed_getrf,
 )
+from elementalx_torch.kernels.latrd import latrd_panel, latrd_panel_plain
 from elementalx_torch.kernels.matmul import matmul, matmul_plain
 from elementalx_torch.kernels.potrf import (
     padded_order,
     potrf_block_inv,
     potrf_block_inv_plain,
 )
+from elementalx_torch.kernels.sb2tr import sb2tr, sb2tr_plain
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -291,6 +293,126 @@ def test_getrf_cpu_tensors_count_nothing():
 
 
 # ---------------------------------------------------------------------------
+# K5 and K6 on the CPU: the plain versions against the JAX kernels
+# ---------------------------------------------------------------------------
+
+
+def _sym(rng, n, dtype=np.float32):
+    a = rng.standard_normal((n, n))
+    return ((a + a.T) / 2).astype(dtype)
+
+
+def _band(rng, n, b, dtype=np.float64):
+    a = _sym(rng, n, np.float64)
+    i, j = np.indices((n, n))
+    return np.where(np.abs(i - j) <= b, a, 0.0).astype(dtype)
+
+
+@pytest.mark.parametrize("k0,w", [(0, 128), (64, 126)])
+def test_latrd_plain_vs_pallas_interpret(k0, w):
+    """M=256 f32 against the Pallas kernel in interpret mode (ts=128; it
+    needs x64 off). Rows >= k0 (the JAX kernel leaves rows < k0 as junk):
+    P, W and tau to 2e-4 of max|ref| (float32 symvs summed in other
+    orders over 128 columns)."""
+    import jax
+    import jax.numpy as jnp
+    from elementalx.kernels.latrd import latrd_panel as jlatrd
+
+    a = _sym(np.random.default_rng(30), 256)
+    with jax.enable_x64(False):
+        ref = [np.asarray(x) for x in jlatrd(jnp.asarray(a), k0, w, nb=128,
+                                             ts=128, interpret=True)]
+    out = [x.numpy() for x in latrd_panel(torch.tensor(a), k0, w, 128)]
+    for o, r in zip(out[:2], ref[:2]):
+        assert np.abs(o[k0:, :w] - r[k0:, :w]).max() < 2e-4 * np.abs(
+            r[k0:, :w]).max()
+        assert np.all(o[:k0] == 0) and np.all(o[:, w:] == 0)
+    assert np.abs(out[2][:w] - ref[2][:w]).max() < 2e-4 * np.abs(ref[2]).max()
+
+
+def test_latrd_plain_vs_xla_panel_f64():
+    """float64, ragged M=90, k0=7, w=20, against the JAX package's XLA
+    panel (condense._tridiag_panel): 1e-12 of max|ref|."""
+    import jax.numpy as jnp
+    from elementalx.lapack.condense import _tridiag_panel
+
+    M, k0, w = 90, 7, 20
+    a = _sym(np.random.default_rng(31), M, np.float64)
+    at, _, W, tau = (np.asarray(x) for x in _tridiag_panel(
+        jnp.asarray(a), jnp.asarray(a[k0:, k0:]), jnp.zeros((M - k0, w)),
+        jnp.zeros((M - k0, w)), jnp.zeros((M,)), k0, w, M - k0))
+    P, Wo, t = (x.numpy() for x in latrd_panel(torch.tensor(a), k0, w, 32))
+    assert P.shape == (M, 32) and t.shape == (32,)
+    assert np.abs(P[k0:, :w] - at[:, :w]).max() < 1e-12 * np.abs(at).max()
+    assert np.abs(Wo[k0:, :w] - W).max() < 1e-12 * np.abs(W).max()
+    assert np.abs(t[:w] - tau[k0:k0 + w]).max() < 1e-12
+
+
+def _q2_contract(vout, d, e, ab, b):
+    """(spectrum error, orthogonality, max|Q2^T A Q2 - T|) of a chase."""
+    from elementalx_torch.lapack.sbr import _apply_q2
+
+    n = ab.shape[0]
+    T = np.diag(d) + np.diag(e, -1) + np.diag(e, 1)
+    ev = np.linalg.eigvalsh(ab.astype(np.float64))
+    spec = np.abs(np.linalg.eigvalsh(T.astype(np.float64)) - ev).max()
+    Q2 = _apply_q2(torch.tensor(vout), torch.eye(n, dtype=torch.float64),
+                   n, b).numpy()
+    return (spec, np.abs(Q2.T @ Q2 - np.eye(n)).max(),
+            np.abs(Q2.T @ ab @ Q2 - T).max())
+
+
+def test_sb2tr_plain_vs_pallas_interpret():
+    """n=256, b=128 f32 against the Pallas chase in interpret mode (x64
+    off; fed sbr._band_to_ds's layout). f32 rounding inside the chase
+    moves single d/e entries by ~1e-3 while the spectra agree to ~1e-6,
+    so the two are compared through the spectrum (each within 100 n eps
+    max|w| of eigvalsh of the band) and the backtransform (each Q2
+    orthogonal to 1e-5 and reducing the band to its T to 1e-4 max|w|),
+    never elementwise on d/e."""
+    import jax
+    import jax.numpy as jnp
+    from elementalx.kernels.sb2tr import sb2tr as jsb2tr
+    from elementalx.lapack.sbr import _band_to_ds
+
+    n, b = 256, 128
+    ab = _band(np.random.default_rng(32), n, b, np.float32)
+    with jax.enable_x64(False):
+        jv, de = (np.asarray(x) for x in jsb2tr(_band_to_ds(
+            jnp.asarray(ab), b), n, b, interpret=True))
+    jd = np.concatenate([ab[:1, 0], de[:n - 1, 1]])
+    je = de[:n - 1, 0]
+    v, d, e = (x.numpy() for x in sb2tr(torch.tensor(ab), b))
+    assert v.shape == jv.shape
+    wmax = np.abs(np.linalg.eigvalsh(ab.astype(np.float64))).max()
+    for vv, dd, ee in ((jv, jd, je), (v, d, e)):
+        spec, orth, red = _q2_contract(vv.astype(np.float64), dd, ee,
+                                       ab.astype(np.float64), b)
+        assert spec < 100 * n * np.finfo(np.float32).eps * wmax
+        assert orth < 1e-5 and red < 1e-4 * wmax
+
+
+@pytest.mark.parametrize("n,b", [(64, 16), (50, 4), (7, 2), (2, 2)])
+def test_sb2tr_plain_contract_f64(n, b):
+    """float64, small bands including a window wider than what is left
+    and the no-sweep case n=2: the spectrum and the backtransform to
+    1e-12."""
+    ab = _band(np.random.default_rng(33), n, b)
+    v, d, e = (x.numpy() for x in sb2tr(torch.tensor(ab), b))
+    spec, orth, red = _q2_contract(v, d, e, ab, b)
+    scale = max(np.abs(ab).max(), 1)
+    assert spec < 1e-12 * scale and orth < 1e-12 and red < 1e-12 * scale
+
+
+def test_latrd_sb2tr_cpu_tensors_count_nothing():
+    before = (latrd_panel.launches, sb2tr.launches)
+    a = torch.eye(8, dtype=torch.float64)
+    latrd_panel(a, 0, 4, 4)
+    sb2tr(a, 2)
+    assert (latrd_panel.launches, sb2tr.launches) == before
+
+
+# ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -489,3 +611,142 @@ def test_linear_solve_on_card(cuda, dt):
     if dt == torch.float64:
         x_cpu, _ = linear_solve_step(a.cpu(), b.cpu())
         assert (x.cpu() - x_cpu).abs().max() <= 1e-10 * x_cpu.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,k0,w,dt", [
+    (300, 0, 64, torch.float64), (1000, 37, 100, torch.float32),
+    (2048, 0, 128, torch.float64), (4096, 1024, 128, torch.float32),
+    (70, 60, 8, torch.float64), (5, 0, 3, torch.float64),
+])
+def test_latrd_kernel_vs_plain(cuda, M, k0, w, dt):
+    """K5 against its plain version on the card: P, W and tau to 1e-5
+    (float32) / 1e-10 (float64) of the largest entry; rows < k0 and
+    columns >= w zero; the reflectors (P below the pivot, with the
+    implicit 1) have |v|^2 tau = 2 unless tau = 0."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((M, M), generator=g, device=cuda, dtype=torch.float64)
+    a = ((x + x.mT) / 2).to(dt)
+    before = latrd_panel.launches
+    out = latrd_panel(a, k0, w, 128)
+    ref = latrd_panel_plain(a, k0, w, 128)
+    torch.cuda.synchronize()
+    assert latrd_panel.launches == before + 1
+    rtol = 1e-5 if dt == torch.float32 else 1e-10
+    for o, r in zip(out, ref):
+        assert (o - r).abs().max().item() <= rtol * r.abs().max().item()
+    P, W, tau = out
+    assert P[:k0].abs().sum().item() == 0 and W[:k0].abs().sum().item() == 0
+    assert P[:, w:].abs().sum().item() == 0 and W[:, w:].abs().sum().item() == 0
+    for j in range(w):
+        v = P[k0 + j + 2:, j].double()
+        t = tau[j].item()
+        if t != 0:
+            assert abs((1 + v.square().sum().item()) * t - 2) < 100 * rtol
+
+
+@pytest.mark.cuda
+def test_hermitian_tridiag_wide_blocksize_on_card(cuda):
+    """HermitianTridiag at blocksize 256 on the card: every panel is a K5
+    launch at K5's widest panel (128), so d and e equal the run at
+    blocksize 128 bit for bit."""
+    import elementalx_torch as Et
+    from elementalx_torch.entry import make_eig_problem
+    from elementalx_torch.lapack.condense import HermitianTridiag
+
+    n = 1024
+    h = Et.DistMatrix.from_global(make_eig_problem(n, device=cuda, seed=10),
+                                  grid=Et.Grid(cuda))
+    before = latrd_panel.launches
+    wide = HermitianTridiag(Et.LOWER, h, blocksize=256)
+    torch.cuda.synchronize()
+    assert latrd_panel.launches - before == 8
+    narrow = HermitianTridiag(Et.LOWER, h, blocksize=128)
+    assert torch.equal(wide.d, narrow.d) and torch.equal(wide.e, narrow.e)
+
+
+@pytest.mark.cuda
+def test_latrd_kernel_refuses_complex_and_bad_width(cuda):
+    a = torch.eye(16, dtype=torch.complex64, device=cuda)
+    with pytest.raises(NotImplementedError):
+        latrd_panel(a, 0, 4, 4)
+    with pytest.raises(ValueError):
+        latrd_panel(torch.eye(16, device=cuda), 10, 8, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b", [(40, 4), (300, 16), (1000, 16),
+                                 (1024, 128), (513, 256)])
+def test_sb2tr_kernel_vs_plain_f64(cuda, n, b):
+    """K6 in float64 against the sequential plain chase: the same ops in
+    the same order, so vout, d and e agree to float64 rounding (1e-9 of
+    the band's largest entry)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((n, n), generator=g, device=cuda, dtype=torch.float64)
+    i = torch.arange(n, device=cuda)
+    ab = torch.where((i[:, None] - i[None, :]).abs() <= b, (x + x.mT) / 2,
+                     torch.zeros((), dtype=torch.float64, device=cuda))
+    before = sb2tr.launches
+    v, d, e = sb2tr(ab, b)
+    vp, dp, ep = sb2tr_plain(ab, b)
+    torch.cuda.synchronize()
+    assert sb2tr.launches == before + 1
+    tol = 1e-9 * ab.abs().max().item()
+    assert (v - vp).abs().max().item() <= tol
+    assert (d - dp).abs().max().item() <= tol
+    assert (e - ep).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b", [(1000, 16), (2048, 128)])
+def test_sb2tr_kernel_f32_spectrum(cuda, n, b):
+    """float32: the spectrum of (d, e) within 100 n eps max|w| of
+    eigvalsh of the band, and Q2 orthogonal to 100 n eps."""
+    from elementalx_torch.lapack.sbr import _apply_q2
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn((n, n), generator=g, device=cuda, dtype=torch.float64)
+    i = torch.arange(n, device=cuda)
+    ab = torch.where((i[:, None] - i[None, :]).abs() <= b, (x + x.mT) / 2,
+                     torch.zeros((), dtype=torch.float64, device=cuda))
+    v, d, e = sb2tr(ab.float(), b)
+    T = torch.diag(d.double()) + torch.diag(e.double(), -1) \
+        + torch.diag(e.double(), 1)
+    ev = torch.linalg.eigvalsh(ab)
+    eps = torch.finfo(torch.float32).eps
+    assert (torch.linalg.eigvalsh(T) - ev).abs().max().item() \
+        <= 100 * n * eps * ev.abs().max().item()
+    Q2 = _apply_q2(v, torch.eye(n, device=cuda), n, b).double()
+    assert (Q2.mT @ Q2 - torch.eye(n, device=cuda, dtype=torch.float64)
+            ).abs().max().item() <= 100 * n * eps
+
+
+@pytest.mark.cuda
+def test_sb2tr_kernel_refuses_complex(cuda):
+    with pytest.raises(NotImplementedError):
+        sb2tr(torch.eye(8, dtype=torch.complex64, device=cuda), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", ["latrd", "sbr"])
+def test_hermitian_eig_on_card(cuda, alg):
+    """hermitian_eig_step at n=1024 f32 on the card: K5 on every latrd
+    panel (eight of 128 columns) or K6 once for SBR, K1 for the
+    products; scaled residual and orthogonality below 100."""
+    import elementalx_torch as Et
+    from elementalx_torch.entry import hermitian_eig_step, make_eig_problem
+
+    n = 1024
+    h = make_eig_problem(n, device=cuda, seed=9)
+    before = (latrd_panel.launches, sb2tr.launches, matmul.launches)
+    w, q, r = hermitian_eig_step(h, Et.HermitianEigCtrl(tridiag_alg=alg))
+    torch.cuda.synchronize()
+    k5, k6, k1 = (a - b for a, b in zip(
+        (latrd_panel.launches, sb2tr.launches, matmul.launches), before))
+    assert k1 > 0 and (k5 == 8 if alg == "latrd" else k6 == 1)
+    assert float(r) < 100
+    eps = torch.finfo(torch.float32).eps
+    qd = q.double()
+    orth = (qd.mT @ qd - torch.eye(n, device=cuda, dtype=torch.float64)
+            ).abs().max().item() / (eps * n)
+    assert orth < 100
