@@ -1,5 +1,6 @@
-"""Drive the port's main paths (HPD solve, LU solve, HermitianEig) on one
-NVIDIA GPU and check them.
+"""Drive the port's main paths (HPD solve, LU solve, HermitianEig, the
+BLAS levels 2 and 3, the fused Cholesky panel tail, HermitianGenDefEig)
+on one NVIDIA GPU and check them.
 
 Usage, from the root of the repository: ``python3 chip_smoke.py``
 
@@ -27,9 +28,26 @@ Phases (each raises on failure, so the script exits non-zero):
      through the latrd path (K5) and the SBR path (K6), each run twice,
      gated on the scaled residual, the orthogonality and the launch
      counts, with its stages timed once; and a small float64 run held
-     against the same step on the CPU.
-The line before the last is a JSON summary of the kernels; the last line
-is ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
+     against the same step on the CPU;
+  9. K2 (masked rank-k update), K3b/K3c (fused panel tail) and K7
+     (lower-triangle symv) against their plain versions at the level-3,
+     HPD and symv shapes; K3c once at each of the HPD path's 32 panel
+     shapes, the launches its JSON entry reports;
+ 10. the fused-tail HPD slice: ``entry()`` at n=16384 under
+     ``ELX_PALLAS_POTRF=1`` (set for the phase only), gated on the scaled
+     residual and 32 K3b launches; a bfloat16-storage Cholesky at n=16384
+     through the fused tail beside the default path; and the public Herk,
+     Trrk and Symv at phase 9's shapes, with their K2/K7 launch counts;
+ 11. the HermitianGenDefEig slice: ``gen_def_eig_step`` at n=8192,
+     float32, AXBX, with the fused tail, gated on the scaled residual,
+     the B-orthogonality and the launch counts, with the residual split
+     by stage in float64 (HermitianEig's own residual on C gated too);
+     and all three pencils at n=300 in float64 held against the same step
+     on the CPU.
+The line before the last is a JSON summary of the kernels, each with its
+bound (the larger of its bytes over 3.35 TB/s and its FP32 operations
+over 67 TFLOP/s, the H100 SXM's published peaks); the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
 repository, it fails and prints no result.
 """
 
@@ -51,6 +69,17 @@ def require(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+#: H100 SXM published peaks: FP32 outside the tensor cores, HBM3
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+
+
+def roofline(flops: float, nbytes: float):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for ``flops`` FP32 operations and ``nbytes`` of memory traffic."""
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def main() -> None:
     import torch
 
@@ -60,10 +89,13 @@ def main() -> None:
     import elementalx_torch as Et
     from elementalx_torch.entry import (
         entry,
+        gen_def_eig_step,
         hermitian_eig_step,
         hpd_solve_step,
         linear_solve_step,
         make_eig_problem,
+        make_gendef_problem,
+        make_hpd_problem,
         make_lu_problem,
     )
     from elementalx_torch.kernels import common
@@ -73,8 +105,21 @@ def main() -> None:
     from elementalx_torch.kernels.potrf import (
         potrf_block_inv,
         potrf_block_inv_plain,
+        potrf_panel_tail,
+        potrf_panel_tail_full,
+        potrf_panel_tail_full_plain,
+        potrf_panel_tail_plain,
     )
     from elementalx_torch.kernels.sb2tr import sb2tr, sb2tr_plain
+    from elementalx_torch.kernels.symv import (
+        symv_lower,
+        symv_lower_plain,
+        symv_lower_trailing,
+    )
+    from elementalx_torch.kernels.trrk import (
+        masked_rank_k,
+        masked_rank_k_plain,
+    )
     from elementalx_torch.lapack import condense, sbr, tridiag_eig
     from elementalx_torch.lapack.hermitian_eig import HermitianEigCtrl
 
@@ -92,6 +137,25 @@ def main() -> None:
         e1.record()
         e1.synchronize()
         return e0.elapsed_time(e1) / iters
+
+    def device_profile(fn):
+        """(wall ms, {kernel name: device ms}) of one synchronised run of
+        fn under torch.profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                    + ev.time_range.elapsed_us() / 1e3)
+        return wall, by_name
 
     def time_pair(kernel, plain, iters):
         """Kernel and plain version in turns: plain, kernel, kernel, plain."""
@@ -153,7 +217,9 @@ def main() -> None:
               f"(tol {rtol} x {scale:.3e})  kernel {ms:.4f} ms "
               f"({tf:.2f} TFLOP/s)  plain {plain_ms:.4f} ms")
         if k1_main is None:
-            k1_main = (err, ms, plain_ms)
+            lib_ms = time_ms(lambda: torch.matmul(a, b), iters)
+            k1_main = (err, ms, plain_ms, lib_ms,
+                       roofline(2 * M * N * K, 4 * (M * K + K * N + M * N)))
         del a, b, c, ref
 
     # ---- 3. K3a against torch.linalg.cholesky_ex + triangular inverse ----
@@ -186,7 +252,9 @@ def main() -> None:
               f"{scale:.3e}), non-HPD -> NaN  kernel {ms:.4f} ms  "
               f"plain {plain_ms:.4f} ms")
         if k3_main is None:
-            k3_main = (err, ms, plain_ms)
+            # Cholesky w^3/3 and the triangular inverse w^3/3; the block
+            # read once, l11 and invLH written once
+            k3_main = (err, ms, plain_ms, roofline(2 * w ** 3 / 3, 12 * w * w))
 
     # ---- 4. the slice ----
     # A small float64 problem on the card against the same step on the
@@ -269,7 +337,10 @@ def main() -> None:
               f"{ndiff} pivots differ, max|out-plain| {err:.3e}  "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
         if k4_main is None:
-            k4_main = (err, ms, plain_ms)
+            lib_ms = time_ms(lambda: torch.linalg.lu_factor_ex(a), 5)
+            k4_main = (err, ms, plain_ms, lib_ms,
+                       roofline(Mt * w * w - w ** 3 / 3,
+                             dt.itemsize * 2 * Mt * w))
         del a, out, ref, packed, L, U, ad
 
     # ---- 6. the LU slice ----
@@ -359,7 +430,14 @@ def main() -> None:
               f"{errs[2]:.3e} (rtol {rtol}), max|(|[1;v]|^2 tau - 2)| "
               f"{unit:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
         if k5_main is None:
-            k5_main = (max(errs), ms, plain_ms)
+            # per column j: the symv over the trailing order m_j (2 m_j^2)
+            # and the V/W corrections (8 m_j j); the trailing lower
+            # triangle read once, P and W written once
+            m0 = M - k0
+            fl = sum(2 * (m0 - j - 1) ** 2 + 8 * (m0 - j - 1) * j
+                     for j in range(w))
+            k5_main = (max(errs), ms, plain_ms,
+                       roofline(fl, 4 * (m0 * (m0 + 1) / 2 + 2 * m0 * w)))
         del a, out, ref
 
     # K6: the spectrum of (d, e) within 100 n eps max|w| of eigvalsh of
@@ -421,7 +499,13 @@ def main() -> None:
             plain = (f"plain {plain_ms:.1f} ms (one run), its spectrum error "
                      f"{errp:.3e}, kernel vs plain spectra {errkp:.3e}")
             if k6_main is None:
-                k6_main = (errkp, (ks[0] + ks[1]) / 2, plain_ms)
+                # about n^2 / (2b) ops of 8 b^2 operations each (the
+                # two-sided update of a b x b block and the one-sided one
+                # of the block below it); the band read once, vout, d
+                # and e written once
+                k6_main = (errkp, (ks[0] + ks[1]) / 2, plain_ms,
+                           roofline(4 * m * m * b,
+                                    4 * (2 * m * (b + 1) + 2 * m)))
         Q2 = sbr._apply_q2(v.double(), torch.eye(m, device=dev,
                                                  dtype=torch.float64), m, b)
         orth = (Q2.mT @ Q2 - torch.eye(m, device=dev, dtype=torch.float64)
@@ -523,34 +607,467 @@ def main() -> None:
     _, eigh_ms = stage(lambda: torch.linalg.eigh(h))
     print(f"torch.linalg.eigh n={ne} f32 (context): {eigh_ms:.1f} ms")
 
+    # ---- 9. K2, K3b, K3c and K7 against their plain versions ----
+    def tri_off(M, N, lower):
+        i = torch.arange(M, device=dev)[:, None]
+        j = torch.arange(N, device=dev)[None, :]
+        return (j > i) if lower else (j < i)
+
+    # K2 tolerance: max|out - plain| <= rtol * max|plain|; float32 1e-5
+    # (FP32 sums of K terms, possibly in another order), float64 1e-12;
+    # entries off the triangle must equal C bit for bit.
+    k2_main = None
+    for name, M, K, N, lower, dt in (
+            ("trailing update", 15872, 512, 15872, True, torch.float32),
+            ("upper", 4096, 512, 4096, False, torch.float32),
+            ("ragged", 1000, 777, 1001, True, torch.float32),
+            ("f64", 2048, 256, 2048, True, torch.float64)):
+        a, b, c = (randn(M, K, dtype=dt), randn(K, N, dtype=dt),
+                   randn(M, N, dtype=dt))
+        out = masked_rank_k(lower, -1.0, a, b, 1.0, c)
+        ref = masked_rank_k_plain(lower, -1.0, a, b, 1.0, c)
+        sync()
+        rtol = 1e-5 if dt == torch.float32 else 1e-12
+        err = (out.double() - ref.double()).abs().max().item()
+        scale = ref.double().abs().max().item()
+        off = tri_off(M, N, lower)
+        require(err <= rtol * scale, f"K2 {name}: {err} > {rtol} * {scale}")
+        require(torch.equal(out[off], c[off]),
+                f"K2 {name}: entries off the triangle changed")
+        del off, out, ref
+        iters = 3 if M * N * K > 1e11 else 10
+        ms, plain_ms = time_pair(
+            lambda: masked_rank_k(lower, -1.0, a, b, 1.0, c),
+            lambda: masked_rank_k_plain(lower, -1.0, a, b, 1.0, c), iters)
+        tri = sum(min(i + 1, N) if lower else max(N - i, 0)
+                  for i in range(M))
+        print(f"K2 {name} ({M}x{K})x({K}x{N}) {'lower' if lower else 'upper'}"
+              f" {str(dt)[6:]}: max_abs_err {err:.3e} (tol {rtol} x "
+              f"{scale:.3e}), off-triangle entries equal C  kernel "
+              f"{ms:.4f} ms ({2 * K * tri / ms / 1e9:.2f} TFLOP/s on the "
+              f"triangle)  plain {plain_ms:.4f} ms")
+        if k2_main is None:
+            addmm_ms = time_ms(lambda: torch.where(
+                tri_off(M, N, lower), c, torch.addmm(c, a, b, alpha=-1.0)),
+                iters)
+            print(f"K2 context: torch.addmm over the full square + "
+                  f"torch.where {addmm_ms:.4f} ms")
+            k2_main = (err, ms, plain_ms,
+                       roofline(2 * K * tri, 4 * (M * K + K * N + 2 * tri)))
+        del a, b, c
+
+    # K3b tolerance: L21 within 1e-5 of max|plain| (float32; a block of
+    # condition number below 3), 5e-4 with low_apply (both versions round
+    # the apply's operands to bfloat16, from inverses that differ in
+    # float32 rounding, so a few operands land on the neighbouring bf16
+    # value: about 7e-5 measured), and then K3b without low_apply must lie
+    # more than ten times that error away (the rounding itself moves L21 by
+    # about 3e-3 of max|L21|, so a kernel that skipped it fails); L11 must
+    # equal K3a's output bit for bit (the same device code in the same
+    # order); a block that is not positive definite gives NaN in every row.
+    def spd_block(w):
+        g = randn(w, w, dtype=torch.float64)
+        return (g @ g.mT / w + 2 * torch.eye(w, device=dev,
+                                            dtype=torch.float64)).float()
+
+    k3b_main = None
+    for Mt, w, low in ((16384, 512, False), (16384, 512, True),
+                       (8192, 2048, False), (8192, 2048, True),
+                       (1000, 200, False)):
+        sym = spd_block(w)
+        pan = randn(Mt, w)
+        pan[:w] = float("nan")  # the diagonal block's rows are never read
+        out = potrf_panel_tail(sym, pan, low_apply=low)
+        ref = potrf_panel_tail_plain(sym, pan, low_apply=low)
+        l11, _ = potrf_block_inv(sym)
+        sync()
+        rtol = 5e-4 if low else 1e-5
+        err = (out[w:] - ref[w:]).abs().max().item()
+        scale = ref[w:].abs().max().item()
+        require(err <= rtol * scale,
+                f"K3b ({Mt},{w}) low={low}: {err} > {rtol} * {scale}")
+        sep = ""
+        if low:
+            unrounded = potrf_panel_tail(sym, pan)
+            sync()
+            gap = (out[w:] - unrounded[w:]).abs().max().item()
+            require(gap > 10 * err,
+                    f"K3b ({Mt},{w}): low_apply moves L21 by {gap}, not "
+                    f"more than 10 x {err}")
+            sep = f", {gap:.3e} from low_apply=False"
+            del unrounded
+        require(torch.equal(out[:w], l11),
+                f"K3b ({Mt},{w}): L11 differs from K3a's")
+        bad = potrf_panel_tail(-sym, pan, low_apply=low)
+        sync()
+        require(bool(bad.isnan().all()),
+                f"K3b ({Mt},{w}): a non-HPD block was not poisoned")
+        ms, plain_ms = time_pair(
+            lambda: potrf_panel_tail(sym, pan, low_apply=low),
+            lambda: potrf_panel_tail_plain(sym, pan, low_apply=low), 5)
+        print(f"K3b ({Mt},{w}) low_apply={low}: max_abs_err L21 {err:.3e} "
+              f"(tol {rtol} x {scale:.3e}){sep}, L11 equal to K3a's, "
+              f"non-HPD -> NaN  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+        if k3b_main is None:
+            # the work: chol of the block (w^3/3) and a triangular solve
+            # for L21 ((Mt - w) w^2)
+            k3b_main = (err, ms, plain_ms,
+                        roofline(w ** 3 / 3 + (Mt - w) * w * w,
+                                 4 * (w * w + (Mt - w) * w + Mt * w)))
+        del pan, out, ref, bad
+
+    # K3c: its rows from tile kidx on equal K3b's on the same rows, bit
+    # for bit, and the rows above are exact zeros. No driver calls K3c
+    # (in either package), so its launches are one sweep over the HPD
+    # path's 32 panel shapes (n=16384, nb=512).
+    M3, w3 = 16384, 512
+    nt = M3 // w3
+    kmid = nt // 2 - 1
+    sym = spd_block(w3)
+    pan = randn(M3, w3)
+    for k in (0, kmid, nt - 1):
+        o = potrf_panel_tail_full(sym, pan, k)
+        r = potrf_panel_tail(sym, pan[k * w3:])
+        sync()
+        require(torch.equal(o[k * w3:], r) and not bool(o[:k * w3].any()),
+                f"K3c kidx={k}: not K3b's rows below zeros")
+    o = potrf_panel_tail_full(sym, pan, kmid)
+    r = potrf_panel_tail_full_plain(sym, pan, kmid)
+    sync()
+    k3c_err = (o - r).abs().max().item()
+    require(k3c_err <= 1e-5 * r.abs().max().item(),
+            f"K3c kidx={kmid}: {k3c_err} from its plain version")
+    ms, plain_ms = time_pair(
+        lambda: potrf_panel_tail_full(sym, pan, kmid),
+        lambda: potrf_panel_tail_full_plain(sym, pan, kmid), 5)
+    r0 = kmid * w3
+    k3c_main = (k3c_err, ms, plain_ms,
+                roofline(w3 ** 3 / 3 + (M3 - r0 - w3) * w3 * w3,
+                         4 * (w3 * w3 + (M3 - r0 - w3) * w3 + M3 * w3)))
+    sync()
+    potrf_panel_tail_full.launches = 0
+    for k in range(nt):
+        potrf_panel_tail_full(sym, pan, k)
+    sync()
+    k3c_launches = potrf_panel_tail_full.launches
+    require(k3c_launches == nt, f"K3c sweep: {k3c_launches} launches")
+    print(f"K3c ({M3},{w3}) kidx 0/{kmid}/{nt - 1}: rows from the diagonal "
+          f"tile equal K3b's, zeros above; kidx={kmid} max_abs_err "
+          f"{k3c_err:.3e}  kernel "
+          f"{ms:.4f} ms  plain {plain_ms:.4f} ms; sweep over the {nt} panel "
+          f"shapes: {k3c_launches} launches")
+    del sym, pan, o, r
+
+    # K7 tolerance: 1e-5 of max|y| in float32 (sums of n terms in another
+    # order), 1e-12 in float64; NaN in the strict upper triangle must not
+    # reach y; two runs give the same bits.
+    k7_main = None
+    for n7, k0, dt in ((16384, 0, torch.float32), (16384, 5000, torch.float32),
+                       (4096, 0, torch.float64)):
+        A = randn(n7, n7, dtype=dt)
+        v = randn(n7 - k0, dtype=dt)
+        An = A.clone()
+        iu = torch.triu_indices(n7, n7, 1, device=dev)
+        An[iu[0], iu[1]] = float("nan")
+        del iu
+        run = (lambda: symv_lower(An, v)) if k0 == 0 else \
+            (lambda: symv_lower_trailing(An, v, k0))
+        y, y2 = run(), run()
+        ref = symv_lower_plain(A[k0:, k0:], v)
+        sync()
+        rtol = 1e-5 if dt == torch.float32 else 1e-12
+        err = (y - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        require(err <= rtol * scale, f"K7 n={n7} k0={k0}: {err} > {rtol} * "
+                                     f"{scale}")
+        require(torch.equal(y, y2), f"K7 n={n7}: two runs differ")
+        ms, plain_ms = time_pair(run, lambda: symv_lower_plain(A[k0:, k0:], v),
+                                 10)
+        m7 = n7 - k0
+        b7 = roofline(2 * m7 * m7, 4 * (m7 * (m7 + 1) / 2 + 2 * m7))
+        extra = ""
+        if k7_main is None:
+            H = torch.tril(A) + torch.tril(A, -1).mT
+            lib_ms = time_ms(lambda: torch.mv(H, v), 10)
+            del H
+            k7_main = (err, ms, plain_ms, lib_ms, b7)
+            extra = (f"  torch.mv on the full symmetric matrix {lib_ms:.4f} "
+                     f"ms")
+        gbs = 2 * m7 * m7 / ms / 1e6
+        print(f"K7 symv n={n7} k0={k0} {str(dt)[6:]} (NaN above the "
+              f"diagonal): max_abs_err {err:.3e} (tol {rtol} x {scale:.3e}),"
+              f" same bits twice  kernel {ms:.4f} ms ({gbs:.1f} GB/s of the "
+              f"triangle; bound {b7[0]:.4f} ms)  plain {plain_ms:.4f} ms"
+              f"{extra}")
+        del A, An, v, y, y2, ref
+
+    # ---- 10. the fused-tail HPD slice ----
+    os.environ["ELX_PALLAS_POTRF"] = "1"
+    try:
+        step, (a, b) = entry(n=n, nrhs=nrhs, dtype=torch.float32, device=dev)
+        sync()
+        matmul.launches = potrf_block_inv.launches = 0
+        potrf_panel_tail.launches = 0
+        t0 = time.perf_counter()
+        x, nrm = step(a, b)
+        sync()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        fused_launches = {"K1": matmul.launches,
+                          "K3a": potrf_block_inv.launches,
+                          "K3b": potrf_panel_tail.launches}
+        t0 = time.perf_counter()
+        step(a, b)
+        sync()
+        again_ms = (time.perf_counter() - t0) * 1e3
+        require(tuple(x.shape) == (n, nrhs) and bool(torch.isfinite(x).all()),
+                "fused HPD slice: non-finite or misshapen X")
+        resid = ((a.double() @ x.double() - b.double()).abs().max()
+                 / (eps * n * b.double().abs().max())).item()
+        require(resid < 100, f"fused HPD slice: scaled residual {resid}")
+        require(fused_launches["K3b"] == 32 and fused_launches["K3a"] == 0
+                and fused_launches["K1"] > 0,
+                f"fused HPD slice launches {fused_launches}")
+        print(f"slice HPDSolve with the fused tail (ELX_PALLAS_POTRF=1), "
+              f"n={n} nrhs={nrhs} f32: {first_ms:.1f} ms (first run), "
+              f"{again_ms:.1f} ms (second run); scaled residual "
+              f"{resid:.4f}; launches {fused_launches}")
+        for label in ("fused tail", "default (K3a)"):
+            if label != "fused tail":
+                os.environ.pop("ELX_PALLAS_POTRF", None)
+            wall, by_name = device_profile(lambda: step(a, b))
+            busy = sum(by_name.values())
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+            print(f"HPD step profile ({label}), n={n} f32: wall {wall:.1f} "
+                  f"ms, device busy {busy:.1f} ms (idle "
+                  f"{100 * (1 - busy / wall):.1f}%); "
+                  + "; ".join(f"{k[:40]} {v:.1f} ms ({100 * v / wall:.1f}%)"
+                              for k, v in top))
+        os.environ["ELX_PALLAS_POTRF"] = "1"
+        del x, b
+
+        # bfloat16 storage: the fused tail with low_apply beside the
+        # default (K3a) path; max|A - L L^T| / max|A| < 5e-2 for the fused
+        a16 = a.bfloat16()
+        A16 = Et.DistMatrix.from_global(a16, grid=Et.Grid(dev))
+        ab = a16.float()
+        errs16 = {}
+        for label, fuse in (("fused tail", True), ("default", False)):
+            if fuse:
+                os.environ["ELX_PALLAS_POTRF"] = "1"
+            else:
+                os.environ.pop("ELX_PALLAS_POTRF", None)
+            potrf_panel_tail.launches = potrf_block_inv.launches = 0
+            sync()
+            t0 = time.perf_counter()
+            L16 = Et.Cholesky(Et.LOWER, A16)
+            sync()
+            t16 = (time.perf_counter() - t0) * 1e3
+            Lf = L16.data.float()
+            errs16[label] = ((Lf @ Lf.mT - ab).abs().max()
+                             / ab.abs().max()).item()
+            print(f"Cholesky bf16 storage n={n} ({label}): "
+                  f"max|A - LL^T|/max|A| = {errs16[label]:.4e}; {t16:.1f} "
+                  f"ms; launches K3b {potrf_panel_tail.launches}, K3a "
+                  f"{potrf_block_inv.launches}")
+            del L16, Lf
+        os.environ["ELX_PALLAS_POTRF"] = "1"
+        require(errs16["fused tail"] < 5e-2,
+                f"bf16 fused Cholesky: max|A - LL^T|/max|A| "
+                f"{errs16['fused tail']}")
+        del a, a16, A16, ab
+    finally:
+        os.environ.pop("ELX_PALLAS_POTRF", None)
+
+    # the public level-2/3 operations at phase 9's shapes
+    g2 = Et.Grid(dev)
+    M2, K2w = 15872, 512
+    a = randn(M2, K2w)
+    b = randn(K2w, M2)
+    c = randn(M2, M2)
+    A2 = Et.DistMatrix.from_global(a, grid=g2)
+    B2 = Et.DistMatrix.from_global(b, grid=g2)
+    C2 = Et.DistMatrix.from_global(c, grid=g2)
+    hv = randn(n, n)
+    xv = randn(n, 1)
+    H2 = Et.DistMatrix.from_global(hv, grid=g2)
+    X2 = Et.DistMatrix.from_global(xv, grid=g2)
+    sync()
+    masked_rank_k.launches = symv_lower.launches = matmul.launches = 0
+    t0 = time.perf_counter()
+    Hk = Et.Herk(Et.LOWER, Et.NORMAL, -1.0, A2, beta=1.0, C=C2)
+    Tk = Et.Trrk(Et.LOWER, Et.NORMAL, Et.NORMAL, -1.0, A2, B2, 1.0, C2)
+    Yv = Et.Symv(Et.LOWER, 1.0, H2, X2)
+    sync()
+    blas_ms = (time.perf_counter() - t0) * 1e3
+    blas_launches = {"K2": masked_rank_k.launches, "K7": symv_lower.launches,
+                     "K1": matmul.launches}
+    require(blas_launches == {"K2": 2, "K7": 1, "K1": 0},
+            f"Herk/Trrk/Symv launches {blas_launches}")
+    checks = ((Hk.data, masked_rank_k_plain(True, -1.0, a, a.mT, 1.0, c)),
+              (Tk.data, masked_rank_k_plain(True, -1.0, a, b, 1.0, c)),
+              (Yv.data[:, 0], symv_lower_plain(hv, xv[:, 0])))
+    for (out, ref), name in zip(checks, ("Herk", "Trrk", "Symv")):
+        err = (out - ref).abs().max().item()
+        require(err <= 1e-5 * ref.abs().max().item(),
+                f"{name} at the phase 9 shape: {err} from the plain result")
+    print(f"Herk + Trrk ({M2}x{K2w}, lower, C {M2}^2) + Symv (n={n}, "
+          f"LOWER) f32: {blas_ms:.1f} ms together; launches "
+          f"{blas_launches}; each within 1e-5 of its plain version")
+    del a, b, c, hv, xv, A2, B2, C2, H2, X2, Hk, Tk, Yv, checks
+
+    # ---- 11. the HermitianGenDefEig slice ----
+    # n=300 float64, all three pencils: the card against the CPU, w to
+    # 1e-10 of max|w| and X column by column up to sign to 1e-10 of
+    # max|X|.
+    ga, gb = make_gendef_problem(300, dtype=torch.float64, device=dev, seed=2)
+    for pencil in ("AXBX", "ABX", "BAX"):
+        wg, xg, rg = gen_def_eig_step(ga, gb, pencil)
+        wc, xc, rc = gen_def_eig_step(ga.cpu(), gb.cpu(), pencil)
+        dw = (wg.cpu() - wc).abs().max().item()
+        xg = xg.cpu()
+        sgn = torch.where((xg * xc).sum(0) < 0, -1.0, 1.0).to(xg.dtype)
+        dx = (xg * sgn[None, :] - xc).abs().max().item()
+        require(dw <= 1e-10 * wc.abs().max().item()
+                and dx <= 1e-10 * xc.abs().max().item() and rg.item() < 100,
+                f"GenDefEig n=300 f64 {pencil}: card vs CPU dw {dw}, dX "
+                f"{dx}, residual {rg.item()}")
+        print(f"GenDefEig n=300 f64 {pencil}: card vs CPU max|dw| {dw:.3e}, "
+              f"max|dX| (up to sign) {dx:.3e}; scaled residual card "
+              f"{rg.item():.4f}, CPU {rc.item():.4f}")
+
+    ng = 8192
+    ga, gb = make_gendef_problem(ng, device=dev)
+    os.environ["ELX_PALLAS_POTRF"] = "1"
+    try:
+        # the stages around HermitianEig, timed once (synchronised host
+        # clock): Cholesky of B, the reduction, the back-substitution
+        GA = Et.DistMatrix.from_global(ga, grid=Et.Grid(dev))
+        GB = Et.DistMatrix.from_global(gb, grid=Et.Grid(dev))
+        GL, t_chol = stage(lambda: Et.Cholesky(Et.LOWER, GB))
+        GC, t_red = stage(lambda: Et.TwoSidedTrsm(Et.LOWER, Et.NON_UNIT,
+                                                  GA, GL))
+        _, t_back = stage(lambda: Et.Trsm(Et.LEFT, Et.LOWER, Et.ADJOINT,
+                                          Et.NON_UNIT, 1.0, GL, GC))
+        print(f"GenDefEig stages n={ng} f32 (fused tail): Cholesky of B "
+              f"{t_chol:.1f} ms, TwoSidedTrsm {t_red:.1f} ms, the final Trsm "
+              f"{t_back:.1f} ms")
+        del GA, GB
+        sync()
+        matmul.launches = potrf_block_inv.launches = 0
+        potrf_panel_tail.launches = latrd_panel.launches = sb2tr.launches = 0
+        t0 = time.perf_counter()
+        wg, xg, rg = gen_def_eig_step(ga, gb, "AXBX")
+        sync()
+        gd_ms = (time.perf_counter() - t0) * 1e3
+        gd_launches = {"K1": matmul.launches, "K3a": potrf_block_inv.launches,
+                       "K3b": potrf_panel_tail.launches,
+                       "K5": latrd_panel.launches, "K6": sb2tr.launches}
+    finally:
+        os.environ.pop("ELX_PALLAS_POTRF", None)
+    resid = rg.item()
+    xd = xg.double()
+    borth = ((xd.mT @ (gb.double() @ xd) - torch.eye(
+        ng, device=dev, dtype=torch.float64)).abs().max()
+        / (eps * ng)).item()
+    del xd
+    require(tuple(xg.shape) == (ng, ng) and bool(torch.isfinite(xg).all())
+            and bool(torch.isfinite(wg).all()),
+            "GenDefEig slice: non-finite or misshapen output")
+    require(resid < 100, f"GenDefEig slice: scaled residual {resid}")
+    require(borth < 100, f"GenDefEig slice: B-orthogonality {borth}")
+    require(gd_launches["K1"] > 0 and gd_launches["K3b"] > 0
+            and gd_launches["K5"] + gd_launches["K6"] > 0,
+            f"the GenDefEig path did not launch its kernels: {gd_launches}")
+    print(f"slice HermitianGenDefEig AXBX + residual Gemms, n={ng} f32 "
+          f"(fused tail): {gd_ms:.1f} ms; scaled residual max|AX-BXW|/(eps n"
+          f" (max|A| + max|w| max|B|) max|X|) = {resid:.4f}; "
+          f"max|X^T B X - I|/(eps n) = {borth:.4f}; launches {gd_launches}")
+
+    # The scaled residual split by stage, in float64 on the card: with
+    # Z = L^T X and C the lower triangle of TwoSidedTrsm's output made
+    # symmetric (what HermitianEig reads),
+    #   AX - BXW = (A - L C L^T) X + L (CZ - ZW) + (L L^T - B) X W,
+    # the reduction's, the eigensolver's and the Cholesky's share, each in
+    # the units of the scaled residual.
+    Ld = GL.data[:ng, :ng].double().tril()
+    Cd = GC.data[:ng, :ng].double()
+    Cd = Cd.tril() + Cd.tril(-1).mT
+    del GL, GC
+    ad, bd, xd, wd = ga.double(), gb.double(), xg.double(), wg.double()
+    xw = xd * wd[None, :]
+    den = (eps * ng * (ad.abs().max() + wd.abs().max() * bd.abs().max())
+           * xd.abs().max())
+
+    def share(m):
+        return (m.abs().max() / den).item()
+
+    total = share(ad @ xd - bd @ xw)
+    from_red = share((ad - Ld @ Cd @ Ld.mT) @ xd)
+    zd = Ld.mT @ xd
+    R = Cd @ zd - zd * wd[None, :]
+    from_eig = share(Ld @ R)
+    from_chol = share((Ld @ Ld.mT - bd) @ xw)
+    # the eigensolver's share = HermitianEig's own scaled residual on C
+    # x how far L's rows grow R's largest entry x the change of units
+    wmax, rmax = wd.abs().max(), R.abs().max()
+    r_std = (rmax / (eps * ng * wmax)).item()
+    grow = (Ld @ R).abs().max().item() / rmax.item()
+    units = (wmax / ((ad.abs().max() + wmax * bd.abs().max())
+                     * xd.abs().max())).item()
+    linf = Ld.abs().sum(1).max().item()
+    require(total <= from_red + from_eig + from_chol + 1e-6 * total,
+            "GenDefEig residual split: the shares do not bound the total")
+    require(r_std < 100, f"GenDefEig: HermitianEig's residual on C {r_std}")
+    print(f"GenDefEig n={ng} residual split (float64, units of the scaled "
+          f"residual): total {total:.4f} = reduction (A - LCL^T)X "
+          f"{from_red:.4f} + eigensolver L(CZ - ZW) {from_eig:.4f} + "
+          f"Cholesky (LL^T - B)XW {from_chol:.4f} (at most); eigensolver "
+          f"share = max|CZ-ZW|/(eps n max|w|) {r_std:.4f} x "
+          f"max|L(CZ-ZW)|/max|CZ-ZW| {grow:.4f} x max|w|/((max|A| + max|w| "
+          f"max|B|) max|X|) {units:.4f}; ||L||_inf {linf:.4f}, max|A| "
+          f"{ad.abs().max().item():.4f}, max|B| {bd.abs().max().item():.4f},"
+          f" max|w| {wmax.item():.4f}, max|X| {xd.abs().max().item():.4f}, "
+          f"max|Z| {zd.abs().max().item():.4f}")
+    del Ld, Cd, ad, bd, xd, wd, xw, zd, R, den, wmax, rmax
+    del ga, gb, wg, xg
+
+    def row(name, source, replaces, launches, main, lib_ms=None):
+        err, ms, plain_ms = main[:3]
+        (b_ms, b_by) = main[-1]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+    csrc = "elementalx_torch/kernels/csrc/"
     kernels = [
-        {"name": "K1 local GEMM (matmul)", "route": "cuda",
-         "source": "elementalx_torch/kernels/csrc/matmul.cu",
-         "replaces": "elementalx/kernels/matmul.py:39",
-         "launches": launches["K1"] + lu_launches["K1"]
-         + eig_launches["latrd"]["K1"] + eig_launches["sbr"]["K1"],
-         "max_abs_err": k1_main[0],
-         "ms": k1_main[1], "plain_ms": k1_main[2]},
-        {"name": "K3a Cholesky diagonal block (potrf_block_inv)",
-         "route": "cuda", "source": "elementalx_torch/kernels/csrc/potrf.cu",
-         "replaces": "elementalx/kernels/potrf.py:263",
-         "launches": launches["K3a"], "max_abs_err": k3_main[0],
-         "ms": k3_main[1], "plain_ms": k3_main[2]},
-        {"name": "K4 pivoted LU panel (getrf_panel)", "route": "cuda",
-         "source": "elementalx_torch/kernels/csrc/getrf.cu",
-         "replaces": "elementalx/kernels/getrf.py:210",
-         "launches": lu_launches["K4"], "max_abs_err": k4_main[0],
-         "ms": k4_main[1], "plain_ms": k4_main[2]},
-        {"name": "K5 latrd panel (latrd_panel)", "route": "cuda",
-         "source": "elementalx_torch/kernels/csrc/latrd.cu",
-         "replaces": "elementalx/kernels/latrd.py:224",
-         "launches": eig_launches["latrd"]["K5"], "max_abs_err": k5_main[0],
-         "ms": k5_main[1], "plain_ms": k5_main[2]},
-        {"name": "K6 band to tridiagonal bulge chase (sb2tr)",
-         "route": "cuda", "source": "elementalx_torch/kernels/csrc/sb2tr.cu",
-         "replaces": "elementalx/kernels/sb2tr.py:276",
-         "launches": eig_launches["sbr"]["K6"], "max_abs_err": k6_main[0],
-         "ms": k6_main[1], "plain_ms": k6_main[2]},
+        row("K1 local GEMM (matmul)", csrc + "matmul.cu",
+            "elementalx/kernels/matmul.py:39",
+            launches["K1"] + lu_launches["K1"] + eig_launches["latrd"]["K1"]
+            + eig_launches["sbr"]["K1"], k1_main, k1_main[3]),
+        row("K2 masked rank-k update (masked_rank_k)", csrc + "trrk.cu",
+            "elementalx/kernels/trrk.py:45", blas_launches["K2"], k2_main),
+        row("K3a Cholesky diagonal block (potrf_block_inv)",
+            csrc + "potrf.cu", "elementalx/kernels/potrf.py:263",
+            launches["K3a"], k3_main),
+        row("K3b fused Cholesky panel tail (potrf_panel_tail)",
+            csrc + "potrf_tail.cu", "elementalx/kernels/potrf.py:289",
+            fused_launches["K3b"], k3b_main),
+        row("K3c full-height fused panel tail (potrf_panel_tail_full)",
+            csrc + "potrf_tail.cu", "elementalx/kernels/potrf.py:208",
+            k3c_launches, k3c_main),
+        row("K4 pivoted LU panel (getrf_panel)", csrc + "getrf.cu",
+            "elementalx/kernels/getrf.py:210", lu_launches["K4"], k4_main,
+            k4_main[3]),
+        row("K5 latrd panel (latrd_panel)", csrc + "latrd.cu",
+            "elementalx/kernels/latrd.py:224", eig_launches["latrd"]["K5"],
+            k5_main),
+        row("K6 band to tridiagonal bulge chase (sb2tr)", csrc + "sb2tr.cu",
+            "elementalx/kernels/sb2tr.py:276", eig_launches["sbr"]["K6"],
+            k6_main),
+        row("K7 lower-triangle symv (symv_lower)", csrc + "symv.cu",
+            "elementalx/kernels/symv.py:66", blas_launches["K7"], k7_main,
+            k7_main[3]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,14 @@ hand for Hopper (``elementalx_torch/kernels``), each with a plain PyTorch
 version that CPU tensors take. This package never imports JAX.
 
 The ported slices: the HPD-solve main path (a one-device Grid, an
-[MC,MR] DistMatrix, Gemm, Trsm, Cholesky and HPDSolve), the LU path
-(Permutation, LU, LUFullPiv, LUMod and LinearSolve) and the HermitianEig
-path (HermitianTridiag, HermitianTridiagEig, HermitianEig and its subset
-forms). The namespace is
-flat, as the reference's El:: is; the top-level SolveAfter is the
-Cholesky one, and the LU one is ``lapack.lu.SolveAfter``.
+[MC,MR] DistMatrix, Gemm, Trsm, Cholesky and HPDSolve, with the fused
+panel tail under ELX_PALLAS_POTRF=1), the LU path (Permutation, LU,
+LUFullPiv, LUMod and LinearSolve), the HermitianEig path
+(HermitianTridiag, HermitianTridiagEig, HermitianEig and its subset
+forms), the BLAS levels 2 and 3 (all of them but MultiShiftTrsm) and
+HermitianGenDefEig. The namespace is flat, as the reference's El:: is;
+the top-level SolveAfter is the Cholesky one, and the LU one is
+``lapack.lu.SolveAfter``.
 """
 
 __version__ = "0.1.0"
@@ -33,13 +35,46 @@ from .core import *  # noqa: F401,F403,E402
 from . import blas, kernels, lapack  # noqa: F401,E402
 from .blas import (  # noqa: F401,E402
     Adjoint,
+    ApplyGivensSequence,
+    DiagonalSolve,
+    FillDiagonal,
     Gemm,
+    Gemv,
+    Ger,
+    Geru,
+    GetDiagonal,
+    Hemm,
+    Hemv,
+    Her,
+    Her2,
+    Her2k,
+    Herk,
+    HermitianFromEVD,
     MakeHermitian,
+    MakeSymmetric,
     MakeTrapezoidal,
     MaxAbs,
+    NormalFromEVD,
     Nrm2,
+    Symm,
+    Symv,
+    Syr,
+    Syr2,
+    Syr2k,
+    Syrk,
     Transpose,
+    Trdtrmm,
+    Trmm,
+    Trmv,
+    Trr,
+    Trr2,
+    Trr2k,
+    Trrk,
     Trsm,
+    Trsv,
+    Trtrmm,
+    TwoSidedTrmm,
+    TwoSidedTrsm,
 )
 from .lapack import (  # noqa: F401,E402
     LU,
@@ -48,6 +83,7 @@ from .lapack import (  # noqa: F401,E402
     HermitianEigCtrl,
     HermitianEigSubset,
     HermitianEigValueSubset,
+    HermitianGenDefEig,
     HermitianTridiag,
     HermitianTridiagEig,
     HPDSolve,

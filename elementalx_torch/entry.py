@@ -1,4 +1,5 @@
-"""The ported main paths as steps: the HPD solve and the LU solve.
+"""The ported main paths as steps: the HPD solve, the LU solve, the
+Hermitian and the generalized definite eigensolvers.
 
 Counterpart of ``__graft_entry__.entry()``: an HPD solve (Cholesky and two
 triangular solves), the residual Gemm R = B - A X, and its norm, on a
@@ -10,7 +11,9 @@ the residual Gemm and its norm, on a general matrix from
 ``make_lu_problem``. ``hermitian_eig_step`` is the counterpart of
 ``bench.py``'s HermitianEig row (BASELINE config 4): HermitianEig, the
 residual product H Q through Gemm, and the scaled residual, on a matrix
-from ``make_eig_problem``.
+from ``make_eig_problem``. ``gen_def_eig_step`` is HermitianGenDefEig on
+a pencil from ``make_gendef_problem``, with its residual products through
+Gemm.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from .blas import Gemm, Nrm2
 from .core.dmatrix import DistMatrix
 from .core.grid import Grid
 from .core.types import LOWER, NORMAL
-from .lapack import HermitianEig, HPDSolve, LinearSolve
+from .lapack import HermitianEig, HermitianGenDefEig, HPDSolve, LinearSolve
 from .lapack.hermitian_eig import HermitianEigCtrl
 
 
@@ -114,6 +117,52 @@ def hermitian_eig_step(h: torch.Tensor,
     D = R.data[:n, :n] - q * w[None, :]
     eps = torch.finfo(h.dtype).eps
     return w, q, torch.max(torch.abs(D)) / (eps * n * torch.max(torch.abs(w)))
+
+
+def make_gendef_problem(n: int, dtype: torch.dtype = torch.float32,
+                        device: Union[torch.device, str, None] = None,
+                        seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a, b) for a definite pencil: a as ``make_eig_problem`` builds it
+    from ``seed``, b as ``make_hpd_problem`` builds its matrix from
+    ``seed + 1`` (g g^T / n + 2 I, condition number below about 6)."""
+    a = make_eig_problem(n, dtype, device, seed)
+    b, _ = make_hpd_problem(n, 0, dtype, device, seed + 1)
+    return a, b
+
+
+def gen_def_eig_step(a: torch.Tensor, b: torch.Tensor,
+                     pencil: str = "AXBX",
+                     ctrl: Optional[HermitianEigCtrl] = None,
+                     grid: Optional[Grid] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """w, X = HermitianGenDefEig(a, b, pencil), then the pencil's residual
+    through Gemm. Returns (w, X's n x n data, the scaled residual) with
+    eps of a's dtype, as a 0-d tensor on a's device:
+      AXBX: max|AX - BXW| / (eps n (max|A| + max|w| max|B|) max|X|)
+      ABX:  max|ABX - XW| / (eps n (max|A| max|B| + max|w|) max|X|)
+      BAX:  max|BAX - XW| / (eps n (max|A| max|B| + max|w|) max|X|)"""
+    grid = grid or Grid(a.device)
+    n = a.shape[0]
+    A = DistMatrix.from_global(a, grid=grid)
+    B = DistMatrix.from_global(b, grid=grid)
+    w, X = HermitianGenDefEig(LOWER, A, B, vectors=True, ctrl=ctrl,
+                              pencil=pencil)
+    x = X.data[:n, :n]
+    xw = x * w[None, :]
+    amax, bmax = torch.max(torch.abs(a)), torch.max(torch.abs(b))
+    wmax = torch.max(torch.abs(w))
+    if pencil == "AXBX":
+        AX = Gemm(NORMAL, NORMAL, 1.0, A, X).data[:n, :n]
+        BXW = Gemm(NORMAL, NORMAL, 1.0, B, X.with_data(xw)).data[:n, :n]
+        D, scale = AX - BXW, amax + wmax * bmax
+    else:
+        first, second = (B, A) if pencil == "ABX" else (A, B)
+        Y = Gemm(NORMAL, NORMAL, 1.0, first, X)
+        D = Gemm(NORMAL, NORMAL, 1.0, second, Y).data[:n, :n] - xw
+        scale = amax * bmax + wmax
+    eps = torch.finfo(a.dtype).eps
+    xmax = torch.max(torch.abs(x))
+    return w, x, torch.max(torch.abs(D)) / (eps * n * scale * xmax)
 
 
 def entry(n: int = 256, nrhs: int = 16, dtype: torch.dtype = torch.float32,

@@ -9,5 +9,18 @@ from .getrf import (  # noqa: F401
 )
 from .latrd import latrd_panel, latrd_panel_plain  # noqa: F401
 from .matmul import matmul, matmul_plain  # noqa: F401
-from .potrf import potrf_block_inv, potrf_block_inv_plain  # noqa: F401
+from .potrf import (  # noqa: F401
+    potrf_block_inv,
+    potrf_block_inv_plain,
+    potrf_panel_tail,
+    potrf_panel_tail_full,
+    potrf_panel_tail_full_plain,
+    potrf_panel_tail_plain,
+)
 from .sb2tr import sb2tr, sb2tr_plain  # noqa: F401
+from .symv import (  # noqa: F401
+    symv_lower,
+    symv_lower_plain,
+    symv_lower_trailing,
+)
+from .trrk import masked_rank_k, masked_rank_k_plain  # noqa: F401

@@ -138,3 +138,23 @@ def check_launch(rc: int, name: str) -> None:
 def current_stream(t: torch.Tensor) -> int:
     """The raw cudaStream_t of PyTorch's current stream on t's device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def cooperative_grid(entry: str, t: torch.Tensor) -> int:
+    """Blocks of a cooperative launch on t's device for t's dtype, as the
+    C entry ``entry`` (``int entry(int dtype, int* grid)``) sizes it so
+    that every block is resident at once. The kernel checks the grid it is
+    given against the same query, so scratch sized by it fits the launch."""
+    dev = t.device.index if t.device.index is not None \
+        else torch.cuda.current_device()
+    return _cooperative_grid(entry, dev, t.dtype)
+
+
+@functools.cache
+def _cooperative_grid(entry: str, device_index: int,
+                      dtype: torch.dtype) -> int:
+    fn = kernel_function(entry, (ctypes.c_int, ctypes.c_void_p))
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        check_launch(fn(DTYPE_CODE[dtype], ctypes.byref(out)), entry)
+    return out.value

@@ -33,10 +33,11 @@
 //      dots are reduced;
 //   4. p for the own rows and the block's partial v^T p; after the
 //      barrier every block sums those and writes w for its rows.
-// The symv streams only the lower triangle: a unit is 32 rows x 1024
-// columns; each thread owns 4 columns of the unit and adds both
-// A[r, c] v[c] (row sums, reduced across the block by a butterfly
-// reduce-scatter) and A[r, c] v[r] (column sums, in registers). No float
+// The symv (symv_unit.cuh, shared with K7) streams only the lower
+// triangle: a unit is 32 rows x 1024 columns; each thread owns 4 columns
+// of the unit and adds both A[r, c] v[c] (row sums, reduced across the
+// block by a butterfly reduce-scatter) and A[r, c] v[r] (column sums, in
+// registers). No float
 // atomics anywhere: every sum has a fixed order, so the result does not
 // change from run to run. Row gp of W (needed by the next column's acur
 // in every block) is recomputed by each block with the same function the
@@ -47,17 +48,18 @@
 // tensor cores for the panel products; overlapping the barriers.
 #include <cooperative_groups.h>
 
+#include "symv_unit.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;           // threads of a block
-constexpr int kWarps = kThreads / 32;
-constexpr int kR = 32;                  // rows of a symv unit
-constexpr int kCPT = 4;                 // columns per thread in a unit
-constexpr int kUW = kThreads * kCPT;    // columns of a unit
-constexpr int kMaxNB = 128;             // widest panel
-constexpr int kBlocksPerSM = 2;         // most blocks per SM
+constexpr int kThreads = elx::kSymvThreads;  // threads of a block
+constexpr int kWarps = elx::kSymvWarps;
+constexpr int kR = elx::kSymvR;              // rows of a symv unit
+constexpr int kUW = elx::kSymvUW;            // columns of a unit
+constexpr int kMaxNB = 128;                  // widest panel
+constexpr int kBlocksPerSM = 2;              // most blocks per SM
 
 #define ELX_RETURN_IF_ERROR(expr)     \
   do {                                \
@@ -150,67 +152,6 @@ __device__ __noinline__ T p_row(const LatrdArgs<T>& g, int r, int jl, T tau,
                 panel_dot(g, r, jl, sdots, sdots + kMaxNB));
 }
 
-// One symv unit: rows [rs, re) x columns [cb, cb + kUW) of the lower
-// triangle, into this block's partial y.
-template <typename T>
-__device__ void symv_unit(const LatrdArgs<T>& g, const Reflector<T>& h,
-                          int rs, int re, int cb, T* yp, T* svr,
-                          T (*srow)[kR]) {
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  __syncthreads();  // svr / srow reuse
-  if (tid < kR) svr[tid] = rs + tid < re ? h.v(rs + tid) : T(0);
-  __syncthreads();
-  T vc[kCPT], colacc[kCPT], rowacc[kR];
-#pragma unroll
-  for (int k = 0; k < kCPT; ++k) {
-    const int c = cb + k * kThreads + tid;
-    vc[k] = c < g.M ? h.v(c) : T(0);
-    colacc[k] = T(0);
-  }
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    rowacc[i] = T(0);
-    const int r = rs + i;
-    if (r < re) {
-      const T* arow = g.a + static_cast<long long>(r) * g.M;
-      const T vr = svr[i];
-#pragma unroll
-      for (int k = 0; k < kCPT; ++k) {
-        const int c = cb + k * kThreads + tid;
-        if (c <= r) {
-          const T x = arow[c];
-          rowacc[i] += x * vc[k];
-          if (c < r) colacc[k] += x * vr;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kCPT; ++k) {
-    const int c = cb + k * kThreads + tid;
-    if (c < g.M && c < re) yp[c] += colacc[k];
-  }
-  // butterfly reduce-scatter over the warp: lane i ends with row i's sum
-#pragma unroll
-  for (int o = 16; o >= 1; o /= 2) {
-    const bool upper = (lane & o) != 0;
-#pragma unroll
-    for (int i = 0; i < o; ++i) {
-      const T send = upper ? rowacc[i] : rowacc[i + o];
-      const T keep = upper ? rowacc[i + o] : rowacc[i];
-      rowacc[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-    }
-  }
-  srow[warp][lane] = rowacc[0];
-  __syncthreads();  // also orders the column writes before the row writes
-  if (tid < kR && rs + tid < re) {
-    T s = T(0);
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) s += srow[k][tid];
-    yp[rs + tid] += s;
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads) latrd_kernel(LatrdArgs<T> g) {
   __shared__ T red[kWarps];
@@ -274,6 +215,7 @@ __global__ void __launch_bounds__(kThreads) latrd_kernel(LatrdArgs<T> g) {
       g.Pt[off] = r > gp ? v : (r == gp ? h.beta : __ldcg(g.acur + r));
     }
     {
+      const auto vat = [&h](int r) { return h.v(r); };
       const int nstrips = (M - gp + kR - 1) / kR;
       // units are dealt round-robin over the strips in order: this
       // block's first unit in a strip is q0 = (b - units before) mod G
@@ -282,7 +224,8 @@ __global__ void __launch_bounds__(kThreads) latrd_kernel(LatrdArgs<T> g) {
         const int rs = gp + s * kR, re = min(rs + kR, M);
         const int nq = (re - 1 - k0) / kUW + 1;
         for (int q = q0; q < nq; q += G)
-          symv_unit(g, h, rs, re, k0 + q * kUW, yp, svr, srow);
+          elx::symv_unit(g.a, M, M, vat, rs, re, k0 + q * kUW, yp, svr,
+                         srow);
         q0 -= nq % G;
         if (q0 < 0) q0 += G;
       }

@@ -23,7 +23,6 @@ takes float32 and float64 of any M, with k0 + w <= M - 2 (every panel of
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
@@ -31,6 +30,7 @@ import torch
 from .common import (
     DTYPE_CODE,
     check_launch,
+    cooperative_grid,
     current_stream,
     kernel_function,
     on_cuda,
@@ -81,17 +81,6 @@ def _check(a: torch.Tensor, k0: int, w: int, nb: int) -> None:
                          f"k0 + w <= M - 2; got M={M} k0={k0} w={w} nb={nb}")
 
 
-@functools.cache
-def _grid(device_index: int, dtype: torch.dtype) -> int:
-    """Blocks of K5's cooperative launch on this device and dtype."""
-    fn = kernel_function("elx_latrd_grid", (ctypes.c_int, ctypes.c_void_p))
-    out = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        check_launch(fn(DTYPE_CODE[dtype], ctypes.byref(out)),
-                     "elx_latrd_grid")
-    return out.value
-
-
 def latrd_panel(a: torch.Tensor, k0: int, w: int, nb: int = MAX_NB
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(P, W, tau) of one panel. CPU tensors take ``latrd_panel_plain``;
@@ -104,8 +93,7 @@ def latrd_panel(a: torch.Tensor, k0: int, w: int, nb: int = MAX_NB
     a = a.contiguous()
     M = a.shape[0]
     dev, dt = a.device, a.dtype
-    G = _grid(dev.index if dev.index is not None
-              else torch.cuda.current_device(), dt)
+    G = cooperative_grid("elx_latrd_grid", a)
     Pt = torch.zeros((nb, M), dtype=dt, device=dev)
     Wt = torch.zeros((nb, M), dtype=dt, device=dev)
     Vt = torch.zeros((nb, M), dtype=dt, device=dev)

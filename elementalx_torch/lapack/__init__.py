@@ -1,5 +1,5 @@
-"""LAPACK-like drivers of the ported slices: HPD solve, LU and
-HermitianEig."""
+"""LAPACK-like drivers of the ported slices: HPD solve, LU, HermitianEig
+and HermitianGenDefEig."""
 
 from . import (  # noqa: F401
     cholesky,
@@ -22,5 +22,6 @@ from .hermitian_eig import (  # noqa: F401
     HermitianEigCtrl,
     HermitianEigSubset,
     HermitianEigValueSubset,
+    HermitianGenDefEig,
 )
 from .tridiag_eig import HermitianTridiagEig  # noqa: F401

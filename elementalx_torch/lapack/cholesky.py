@@ -4,11 +4,15 @@ Counterpart of the single-device path of ``elementalx/lapack/cholesky.py``
 (reference: src/lapack_like/factor/Cholesky.cpp:96-145,
 factor/Cholesky/LowerVariant2.hpp): the LEFT-looking blocked scheme
 ``_chol_lower_left``. For each nb-wide panel it applies the history
-product of the factor columns to its left, then the panel tail: the
-diagonal block goes through the K3a kernel (kernels/potrf.py), which
-returns L11 and inv(L11)^H, and L21 = A21 inv(L11)^H is one product
-through ``local_gemm`` and so the K1 kernel. Every product of the driver
-runs in full FP32 on float32 data (the JAX package uses bf16x3 there).
+product of the factor columns to its left, then the panel tail. By
+default the diagonal block goes through the K3a kernel (kernels/potrf.py),
+which returns L11 and inv(L11)^H, and L21 = A21 inv(L11)^H is one product
+through ``local_gemm`` and so the K1 kernel. With ``ELX_PALLAS_POTRF=1``
+(read at call time, as the JAX driver reads it) a float32 carrier takes
+the fused panel tail instead: K3b returns [L11; L21] in one launch, with
+the L21 product on bfloat16 operands for bfloat16 or float16 storage.
+Every product of the factorization runs in full FP32 on float32 data (the JAX
+package uses bf16x3 there).
 
 The recursive multi-device form (``_chol_lower_rec``) waits for the
 multi-GPU grid, ROADMAP queue 1 item 11.
@@ -16,6 +20,7 @@ multi-GPU grid, ROADMAP queue 1 item 11.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -36,7 +41,7 @@ from ..core.types import (
 )
 from ..blas.gemm import local_gemm
 from ..blas.trsm import Trsm
-from ..kernels.potrf import potrf_block_inv
+from ..kernels.potrf import potrf_block_inv, potrf_panel_tail
 
 _LOW = (torch.bfloat16, torch.float16)
 
@@ -53,10 +58,20 @@ def _chol_lower_left(a: torch.Tensor, nb: int,
     ``store`` (e.g. bfloat16): ``a`` and the factor are kept in the
     storage dtype, each panel is upcast to a float32 carrier, the history
     products read bf16 operands and return float32, and K3a only ever sees
-    float32."""
+    float32.
+
+    ``ELX_PALLAS_POTRF=1`` with a float32 carrier takes the fused panel
+    tail (K3b), with its L21 product on bfloat16 operands (``low_apply``)
+    for low-precision storage, as the JAX driver gates it. The JAX gate's
+    other conditions are left out: K3b takes any (Mt, w), so the TPU's
+    tile conditions (M % nb == 0, nb % 128 == 0) do not apply, and a CPU
+    tensor takes K3b's plain version instead of being refused."""
     M = a.shape[0]
     sdt = store or a.dtype
-    cdt = torch.float32 if a.dtype in _LOW else a.dtype
+    low = a.dtype in _LOW
+    cdt = torch.float32 if low else a.dtype
+    fuse_tail = (cdt == torch.float32
+                 and os.environ.get("ELX_PALLAS_POTRF") == "1")
     Lbuf = torch.zeros((M, M), dtype=sdt, device=a.device)
     for k0 in range(0, M, nb):
         w = min(nb, M - k0)
@@ -74,6 +89,9 @@ def _chol_lower_left(a: torch.Tensor, nb: int,
             pan = pan - local_gemm(prev, prev[:w].mH, out_dtype=cdt)
         a11 = pan[:w]
         sym = torch.tril(a11) + torch.tril(a11, -1).mH
+        if fuse_tail:
+            Lbuf[k0:, k0:k0 + w] = potrf_panel_tail(sym, pan, low_apply=low)
+            continue
         l11, inv_lh = potrf_block_inv(sym)
         Lbuf[k0:k0 + w, k0:k0 + w] = l11
         if k0 + w < M:

@@ -1,4 +1,5 @@
-"""Hermitian eigensolvers: HermitianEig and its subset forms.
+"""Hermitian eigensolvers: HermitianEig, its subset forms and
+HermitianGenDefEig.
 
 Counterpart of ``elementalx/lapack/hermitian_eig.py`` (reference:
 src/lapack_like/spectral/HermitianEig.cpp:430-533: scale ->
@@ -7,11 +8,13 @@ tridiagonalizations: the one-stage latrd reduction (lapack/condense.py,
 K5 on every panel on the card) and the two-stage SBR reduction
 (lapack/sbr.py, K6 for the chase). The tridiagonal stage is the batched
 bisection and inverse-iteration solver (lapack/tridiag_eig.py); the
-backtransforms are products.
+backtransforms are products. HermitianGenDefEig reduces a definite pencil
+to a standard problem through Cholesky (K3a, or the fused tail K3b under
+``ELX_PALLAS_POTRF=1``) and TwoSidedTrsm or TwoSidedTrmm (level 3).
 
 Not ported yet: the refinement tier (``ctrl.refine``, ROADMAP queue 1
-item 9), and SDC, SkewHermitianEig and HermitianGenDefEig, which need
-polar, QR and TwoSidedTrsm (items 6, 8 and 10).
+item 9), SDC, which needs polar and QR (items 6 and 8), and
+SkewHermitianEig, which needs complex CUDA kernels (item 13).
 """
 
 from __future__ import annotations
@@ -22,9 +25,23 @@ import numpy as np
 import torch
 
 from ..blas.level1 import MakeHermitian, MaxAbs
+from ..blas.level3 import Trmm, TwoSidedTrmm, TwoSidedTrsm
+from ..blas.trsm import Trsm
 from ..core.dmatrix import DistMatrix
-from ..core.types import ASCENDING, LOWER, MC, MR, SortType, UpperOrLower
+from ..core.types import (
+    ADJOINT,
+    ASCENDING,
+    LEFT,
+    LOWER,
+    MC,
+    MR,
+    NON_UNIT,
+    NORMAL,
+    SortType,
+    UpperOrLower,
+)
 from ..kernels.common import on_cuda
+from .cholesky import Cholesky
 from .condense import HermitianTridiag, tridiag_apply_q
 from .sbr import sbr_apply_q, sbr_tridiag
 from .tridiag_eig import tridiag_eig, tridiag_eigvalsh
@@ -157,3 +174,33 @@ def HermitianEigValueSubset(uplo: UpperOrLower, A: DistMatrix,
     n = A.m
     return w[lo:hi + 1], DistMatrix.from_global(Q.data[:n, lo:hi + 1],
                                                 MC, MR, A.grid)
+
+
+def HermitianGenDefEig(uplo: UpperOrLower, A: DistMatrix, B: DistMatrix,
+                       vectors: bool = True,
+                       ctrl: Optional[HermitianEigCtrl] = None,
+                       pencil: str = "AXBX"):
+    """Generalized Hermitian-definite eigenproblems with B HPD (reference:
+    spectral/HermitianGenDefEig.cpp, the Pencil enum), through the
+    Cholesky factor B = L L^H:
+      AXBX:  A x = lambda B x  ->  C = inv(L) A inv(L)^H,  x = L^{-H} z
+      ABX:   A B x = lambda x  ->  C = L^H A L,            x = L^{-H} z
+      BAX:   B A x = lambda x  ->  C = L^H A L,            x = L z
+    As in the JAX package, A is read whole, only the lower triangle of B
+    is read, and ``uplo`` is not consulted. Returns w (and X as a
+    DistMatrix with ``vectors``)."""
+    L = Cholesky(LOWER, B)
+    if pencil == "AXBX":
+        C = TwoSidedTrsm(LOWER, NON_UNIT, A.redistribute(MC, MR), L)
+    elif pencil in ("ABX", "BAX"):
+        C = TwoSidedTrmm(LOWER, NON_UNIT, A.redistribute(MC, MR), L)
+    else:
+        raise ValueError(pencil)
+    if not vectors:
+        return HermitianEig(LOWER, C, vectors=False, ctrl=ctrl)
+    w, Z = HermitianEig(LOWER, C, vectors=True, ctrl=ctrl)
+    if pencil in ("AXBX", "ABX"):
+        X = Trsm(LEFT, LOWER, ADJOINT, NON_UNIT, 1.0, L, Z)
+    else:
+        X = Trmm(LEFT, LOWER, NORMAL, NON_UNIT, 1.0, L, Z)
+    return w, X

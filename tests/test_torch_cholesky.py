@@ -194,3 +194,110 @@ def test_entry_problem_and_residual(dtype):
     assert float(scaled) < 100
     assert float(nrm) == pytest.approx(
         float(torch.linalg.norm(b - a @ x)), rel=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the fused panel tail (ELX_PALLAS_POTRF=1): K3b's plain version here
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def fused(monkeypatch):
+    """Set ELX_PALLAS_POTRF=1 and record the panel shapes K3b is given
+    (the Cholesky factorization reads it at call time)."""
+    from elementalx_torch.lapack import cholesky as tchol
+
+    monkeypatch.setenv("ELX_PALLAS_POTRF", "1")
+    shapes = []
+    real = tchol.potrf_panel_tail
+
+    def spy(sym, pan, low_apply=False):
+        shapes.append((tuple(pan.shape), low_apply))
+        return real(sym, pan, low_apply=low_apply)
+
+    monkeypatch.setattr(tchol, "potrf_panel_tail", spy)
+
+    def no_k3a(sym):
+        raise AssertionError("the fused branch called K3a")
+
+    monkeypatch.setattr(tchol, "potrf_block_inv", no_k3a)
+    return shapes
+
+
+@pytest.mark.parametrize("n", [192, 200], ids=["even", "ragged"])
+def test_cholesky_fused_tail_f32(grids, fused, n):
+    """float32 with the fused tail against the JAX Cholesky (whose CPU
+    route never fuses): 1e-5 relative, as the default path. n=200 with
+    nb=64 ends in a ragged panel of width 8."""
+    rng = np.random.default_rng(37)
+    g = rng.standard_normal((n, n))
+    a = (g @ g.T / n + 2 * np.eye(n)).astype(np.float32)
+    JA, TA = _both(grids, a)
+    ref = El.Cholesky(J.LOWER, JA, blocksize=64)
+    out = Et.Cholesky(T.LOWER, TA, blocksize=64)
+    widths = [64] * (n // 64) + ([n % 64] if n % 64 else [])
+    assert fused == [((n - 64 * k, w), False) for k, w in enumerate(widths)]
+    assert _rel(out.global_array(), ref.global_array()) < 1e-5
+    assert np.abs(np.triu(out.global_array(), 1)).max() == 0.0
+
+
+def test_cholesky_fused_tail_bf16_storage(grids, fused):
+    """bfloat16 storage takes the fused tail with low_apply (bf16 operands
+    of the L21 product), as the JAX driver passes it: the tolerances of
+    test_cholesky_bf16_storage."""
+    rng = np.random.default_rng(32)
+    g = rng.standard_normal((160, 160))
+    a = (g @ g.T / 160 + 2 * np.eye(160)).astype(np.float32)
+    jg, tg = grids
+    JA = El.DistMatrix.from_global(jnp.asarray(a, jnp.bfloat16), grid=jg)
+    TA = Et.DistMatrix.from_global(torch.tensor(a).bfloat16(), grid=tg)
+    ref = El.Cholesky(J.LOWER, JA, blocksize=64)
+    out = Et.Cholesky(T.LOWER, TA, blocksize=64)
+    assert out.dtype == torch.bfloat16
+    assert fused and all(low for _, low in fused)
+    assert _rel(out.global_array(), np.asarray(ref.global_array(),
+                                               np.float32)) < 1e-2
+    f = out.global_array().astype(np.float64)
+    assert np.abs(f @ f.T - a).max() / np.abs(a).max() < 2e-2
+
+
+def test_cholesky_fused_tail_not_for_f64(grids, fused, monkeypatch):
+    """float64 carriers keep the K3a path, as the JAX gate (f32 only)."""
+    from elementalx_torch.kernels.potrf import potrf_block_inv
+    from elementalx_torch.lapack import cholesky as tchol
+
+    monkeypatch.setattr(tchol, "potrf_block_inv", potrf_block_inv)
+    a = _hpd(np.random.default_rng(38), 100)
+    JA, TA = _both(grids, a)
+    out = Et.Cholesky(T.LOWER, TA, blocksize=32)
+    assert fused == []
+    assert _rel(out.global_array(),
+                El.Cholesky(J.LOWER, JA, blocksize=32).global_array()) < 1e-12
+
+
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_cholesky_fused_tail_non_hpd_raises(grids, fused, where):
+    a = _hpd(np.random.default_rng(35), 200).astype(np.float32)
+    k = 0 if where == "first" else 196
+    a[k, k] = -1e6
+    _, TA = _both(grids, a)
+    with pytest.raises(Et.NonHPDMatrixException):
+        Et.Cholesky(T.LOWER, TA, blocksize=64)
+
+
+def test_hpd_solve_fused_tail_upper(grids, fused):
+    """HPDSolve through the fused tail, UPPER storage, float32: the
+    reference's acceptance bound and the JAX package's X to 1e-4."""
+    rng = np.random.default_rng(39)
+    n = 130
+    g = rng.standard_normal((n, n))
+    a = (g @ g.T / n + 2 * np.eye(n)).astype(np.float32)
+    y = rng.standard_normal((n, 3)).astype(np.float32)
+    (JA, TA), (JY, TY) = _both(grids, a), _both(grids, y)
+    out = Et.HPDSolve(T.UPPER, T.NORMAL, TA, TY, blocksize=32)
+    ref = El.HPDSolve(J.UPPER, J.NORMAL, JA, JY, blocksize=32)
+    assert len(fused) == 5
+    x = out.global_array().astype(np.float64)
+    assert _rel(x, ref.global_array()) < 1e-4
+    eps = np.finfo(np.float32).eps
+    assert np.abs(a @ x - y).max() / (eps * n * np.abs(y).max()) < 100

@@ -1,6 +1,6 @@
 """Port parity: the HermitianEig path (reflect, _geqrf_slab, the
 tridiagonal reduction, tridiag_eig, SBR, HermitianEig and
-hermitian_eig_step).
+hermitian_eig_step) and HermitianGenDefEig with gen_def_eig_step.
 
 Each input is made with numpy from a seed and given to the JAX package
 (on one device, the grid its SBR and K5 gates need) and to its PyTorch
@@ -26,7 +26,12 @@ from elementalx.lapack import reflect as jr
 from elementalx.lapack import sbr as js
 from elementalx.lapack import tridiag_eig as jt
 from elementalx.lapack.qr import _geqrf_slab as j_geqrf_slab
-from elementalx_torch.entry import hermitian_eig_step, make_eig_problem
+from elementalx_torch.entry import (
+    gen_def_eig_step,
+    hermitian_eig_step,
+    make_eig_problem,
+    make_gendef_problem,
+)
 from elementalx_torch.lapack import condense as tc
 from elementalx_torch.lapack import reflect as tr
 from elementalx_torch.lapack import sbr as ts
@@ -36,6 +41,7 @@ from elementalx_torch.lapack.hermitian_eig import (
     HermitianEigCtrl,
     HermitianEigSubset,
     HermitianEigValueSubset,
+    HermitianGenDefEig,
 )
 from elementalx_torch.lapack.qr import _geqrf_slab
 
@@ -693,3 +699,110 @@ def test_hermitian_eig_step_f64_matches_bench_formula():
                                                       * np.abs(wn).max())
     assert abs(float(r) - ref) <= 1e-6 * ref + 1e-3
     assert float(r) < 100
+
+
+# ---------------------------------------------------------------------------
+# HermitianGenDefEig (test_eig_svd.py:58-73 and :212-230)
+# ---------------------------------------------------------------------------
+
+
+def _pencil(rng, n):
+    a = rng.standard_normal((n, n))
+    b = rng.standard_normal((n, n))
+    return a + a.T, b @ b.T + n * np.eye(n)
+
+
+def test_gen_def_eig(one_device, rng):
+    """AXBX: w against scipy's eigh(a, b) to 1e-11 and the residual
+    ||AX - BXW|| / ||A|| below 1e-10, as the JAX test; w against the JAX
+    package's to 1e-12 of max|w|."""
+    n = 14
+    a, b = _pencil(rng, n)
+    w, X = HermitianGenDefEig(Et.LOWER, _t(a), _t(b))
+    w, x = w.numpy(), X.global_array()
+    wref = sla.eigh(a, b, eigvals_only=True)
+    assert np.max(np.abs(w - wref)) / max(np.max(np.abs(wref)), 1) < 1e-11
+    assert np.linalg.norm(a @ x - b @ (x * w[None, :])) / np.linalg.norm(
+        a) < 1e-10
+    jw, _ = El.HermitianGenDefEig(El.LOWER, El.DistMatrix.from_global(
+        a, grid=one_device), El.DistMatrix.from_global(b, grid=one_device))
+    assert np.abs(np.asarray(jw) - w).max() < 1e-12 * np.abs(w).max()
+
+
+def test_gen_def_eig_pencils(one_device, rng):
+    """ABX and BAX: w against scipy's eigh types 2 and 3 (1e-10) and the
+    JAX package's (1e-12 of max|w|); residual below 1e-9 ||A||."""
+    n = 12
+    a, b = _pencil(rng, n)
+    for pencil, stype in (("ABX", 2), ("BAX", 3)):
+        w, X = HermitianGenDefEig(Et.LOWER, _t(a), _t(b), pencil=pencil)
+        w, x = w.numpy(), X.global_array()
+        wref = sla.eigh(a, b, type=stype, eigvals_only=True)
+        assert np.max(np.abs(w - wref)) / max(np.max(np.abs(wref)), 1) < 1e-10
+        lhs = a @ (b @ x) if pencil == "ABX" else b @ (a @ x)
+        assert np.linalg.norm(lhs - x * w[None, :]) / np.linalg.norm(a) < 1e-9
+        jw, _ = El.HermitianGenDefEig(
+            El.LOWER, El.DistMatrix.from_global(a, grid=one_device),
+            El.DistMatrix.from_global(b, grid=one_device), pencil=pencil)
+        assert np.abs(np.asarray(jw) - w).max() < 1e-12 * np.abs(w).max()
+
+
+def test_gen_def_eig_values_only_and_bad_pencil(rng):
+    a, b = _pencil(rng, 10)
+    w = HermitianGenDefEig(Et.LOWER, _t(a), _t(b), vectors=False)
+    np.testing.assert_allclose(w.numpy(), sla.eigh(a, b, eigvals_only=True),
+                               rtol=0, atol=1e-11 * np.abs(w.numpy()).max())
+    with pytest.raises(ValueError):
+        HermitianGenDefEig(Et.LOWER, _t(a), _t(b), pencil="XY")
+
+
+def test_make_gendef_problem():
+    a, b = make_gendef_problem(48, dtype=torch.float64, seed=2)
+    assert torch.equal(a, make_eig_problem(48, dtype=torch.float64, seed=2))
+    assert torch.equal(b, b.mT) and torch.equal(a, a.mT)
+    assert float(torch.linalg.eigvalsh(b).min()) > 1.5
+
+
+@pytest.mark.parametrize("pencil", ["AXBX", "ABX", "BAX"])
+def test_gen_def_eig_step_vs_jax(one_device, pencil):
+    """gen_def_eig_step at n=64, float64, against the JAX composition
+    (Cholesky, TwoSidedTrsm/Trmm, HermitianEig, Trsm/Trmm) on the same
+    numpy input: w to 1e-12 of max|w|, X column by column up to sign to
+    1e-10 of max|X| (the spectrum is well separated), and the scaled
+    residual below 100, recomputed in numpy."""
+    n = 64
+    a, b = make_gendef_problem(n, dtype=torch.float64, seed=6)
+    w, x, r = gen_def_eig_step(a, b, pencil)
+    an, bn = a.numpy(), b.numpy()
+    jw, jX = El.HermitianGenDefEig(
+        El.LOWER, El.DistMatrix.from_global(an, grid=one_device),
+        El.DistMatrix.from_global(bn, grid=one_device), pencil=pencil)
+    jw, jx = np.asarray(jw), jX.global_array()
+    w, x = w.numpy(), x.numpy()
+    assert np.abs(jw - w).max() < 1e-12 * np.abs(w).max()
+    sign = np.where(np.sum(x * jx, axis=0) < 0, -1.0, 1.0)
+    assert np.abs(x * sign[None, :] - jx).max() < 1e-10 * np.abs(jx).max()
+    if pencil == "AXBX":
+        d, scale = an @ x - bn @ x * w[None, :], (
+            np.abs(an).max() + np.abs(w).max() * np.abs(bn).max())
+    else:
+        lhs = an @ (bn @ x) if pencil == "ABX" else bn @ (an @ x)
+        d, scale = lhs - x * w[None, :], (
+            np.abs(an).max() * np.abs(bn).max() + np.abs(w).max())
+    ref = np.abs(d).max() / (EPS64 * n * scale * np.abs(x).max())
+    assert abs(float(r) - ref) <= 1e-6 * ref + 1e-3
+    assert float(r) < 100
+
+
+def test_gen_def_eig_step_f32_fused_tail(monkeypatch):
+    """float32 with the fused Cholesky tail: the scaled residual and the
+    B-orthogonality max|X^T B X - I| / (eps n) below 100."""
+    monkeypatch.setenv("ELX_PALLAS_POTRF", "1")
+    n = 80
+    a, b = make_gendef_problem(n, seed=7)
+    w, x, r = gen_def_eig_step(a, b)
+    assert x.dtype == torch.float32 and float(r) < 100
+    xd, bd = x.double(), b.double()
+    eps = np.finfo(np.float32).eps
+    orth = (xd.T @ bd @ xd - torch.eye(n, dtype=torch.float64)).abs().max()
+    assert float(orth) / (eps * n) < 100

@@ -1,5 +1,6 @@
-"""Port parity: the kernels K1 (local GEMM), K3a (Cholesky diagonal
-block), K4 (pivoted LU panel), K5 (latrd panel) and K6 (bulge chase).
+"""Port parity: the kernels K1 (local GEMM), K2 (masked rank-k update),
+K3a (Cholesky diagonal block), K3b/K3c (fused panel tail), K4 (pivoted LU
+panel), K5 (latrd panel), K6 (bulge chase) and K7 (lower-triangle symv).
 
 On the CPU each wrapper takes its plain PyTorch version; those are held
 against the JAX package's Pallas kernels run in interpret mode, as the JAX
@@ -27,8 +28,18 @@ from elementalx_torch.kernels.potrf import (
     padded_order,
     potrf_block_inv,
     potrf_block_inv_plain,
+    potrf_panel_tail,
+    potrf_panel_tail_full,
+    potrf_panel_tail_full_plain,
+    potrf_panel_tail_plain,
 )
 from elementalx_torch.kernels.sb2tr import sb2tr, sb2tr_plain
+from elementalx_torch.kernels.symv import (
+    symv_lower,
+    symv_lower_plain,
+    symv_lower_trailing,
+)
+from elementalx_torch.kernels.trrk import masked_rank_k, masked_rank_k_plain
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -413,6 +424,192 @@ def test_latrd_sb2tr_cpu_tensors_count_nothing():
 
 
 # ---------------------------------------------------------------------------
+# K2, K3b/K3c and K7 on the CPU: the plain versions against the JAX kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("lower", [True, False], ids=["lo", "up"])
+@pytest.mark.parametrize("shape", [(24, 9, 24), (31, 7, 18), (12, 5, 40)],
+                         ids=["square", "tall", "wide"])
+def test_masked_rank_k_plain_vs_jax(lower, shape):
+    """The JAX kernel's CPU route (trrk.py:51-59), float64, 1e-12 of
+    max|C|; entries off the triangle are C's, bit for bit."""
+    import jax.numpy as jnp
+    from elementalx.kernels.trrk import masked_rank_k as jtrrk
+
+    M, K, N = shape
+    rng = np.random.default_rng(16)
+    a, b, c = (rng.standard_normal(s) for s in ((M, K), (K, N), (M, N)))
+    ref = np.asarray(jtrrk(lower, -1.5, jnp.asarray(a), jnp.asarray(b), 0.5,
+                           jnp.asarray(c)))
+    out = masked_rank_k(lower, -1.5, torch.tensor(a), torch.tensor(b), 0.5,
+                        torch.tensor(c)).numpy()
+    assert _rel(out, ref) < 1e-12
+    off = np.triu(np.ones((M, N), bool), 1) if lower \
+        else np.tril(np.ones((M, N), bool), -1)
+    np.testing.assert_array_equal(out[off], c[off])
+
+
+def test_masked_rank_k_plain_f32_and_strided():
+    """float32 through transposed views (Herk's op(A), op(A)^T), against
+    the JAX route at 1e-5."""
+    import jax.numpy as jnp
+    from elementalx.kernels.trrk import masked_rank_k as jtrrk
+
+    rng = np.random.default_rng(17)
+    a = rng.standard_normal((40, 33)).astype(np.float32)
+    c = rng.standard_normal((33, 33)).astype(np.float32)
+    ta = torch.tensor(a)
+    out = masked_rank_k(True, 1.0, ta.mT, ta, 1.0, torch.tensor(c))
+    ref = np.asarray(jtrrk(True, 1.0, jnp.asarray(a.T), jnp.asarray(a), 1.0,
+                           jnp.asarray(c)))
+    assert out.dtype == torch.float32
+    assert _rel(out.numpy(), ref) < 1e-5
+
+
+def _tail_inputs(rng, Mt, w):
+    """A history-updated panel of an SPD matrix with garbage above the
+    diagonal of its (w, w) block, and the symmetrized block (as
+    tests/kernels/test_kernels.py:369-394 builds them)."""
+    A = rng.standard_normal((Mt, Mt)).astype(np.float32)
+    S = (A @ A.T / Mt + np.eye(Mt)).astype(np.float32)
+    pan = np.array(S[:, :w])
+    pan[:w] += np.triu(rng.standard_normal((w, w)), 1).astype(np.float32)
+    sym = np.tril(S[:w, :w]) + np.tril(S[:w, :w], -1).T
+    return S, pan, sym
+
+
+@pytest.mark.parametrize("low_apply", [False, True], ids=["f32", "low"])
+def test_potrf_panel_tail_plain_vs_pallas_interpret(low_apply):
+    """(Mt, w) = (768, 256). float32: 1e-5 relative against the JAX kernel
+    and against numpy's factor. low_apply rounds both operands of the L21
+    product to bfloat16 in the port; on the CPU the JAX kernel's
+    DEFAULT-precision dot is full float32, so the two differ by that
+    rounding, 2^-8 of an operand: 1e-2 of max|L|. That the port rounds is
+    held apart: its L21 lies within 5e-4 of the same rounding applied to
+    numpy's float64 factor, and more than ten times that error away from
+    its own L21 without low_apply."""
+    import jax.numpy as jnp
+    from elementalx.kernels.potrf import potrf_panel_tail as jtail
+
+    S, pan, sym = _tail_inputs(np.random.default_rng(18), 768, 256)
+    ref = np.asarray(jtail(jnp.asarray(sym), jnp.asarray(pan),
+                           interpret=True, low_apply=low_apply))
+    out = potrf_panel_tail(torch.tensor(sym), torch.tensor(pan),
+                           low_apply=low_apply).numpy()
+    exact = np.linalg.cholesky(S.astype(np.float64))[:, :256]
+    tol = 1e-2 if low_apply else 1e-5
+    assert _rel(out, ref) < tol
+    assert _rel(out, exact) < tol
+    assert _rel(out[:256], exact[:256]) < 1e-5
+    assert np.abs(np.triu(out[:256], 1)).max() == 0.0
+    if low_apply:
+        def bf16(x):
+            return torch.tensor(x).bfloat16().double().numpy()
+
+        linv_t = np.linalg.inv(np.linalg.cholesky(sym.astype(np.float64))).T
+        rounded = bf16(pan[256:]) @ bf16(linv_t)
+        unrounded = potrf_panel_tail(torch.tensor(sym),
+                                     torch.tensor(pan)).numpy()
+        err = _rel(out[256:], rounded)
+        assert err < 5e-4
+        assert _rel(out[256:], unrounded[256:]) > 10 * err
+
+
+@pytest.mark.parametrize("kidx", [0, 1, 3])
+def test_potrf_panel_tail_full_plain_vs_pallas_interpret(kidx):
+    """K3c at (1024, 256): zeros above tile kidx, then K3b's output on the
+    rows from there (1e-5 against the JAX kernel, exact against K3b's
+    plain version)."""
+    import jax.numpy as jnp
+    from elementalx.kernels.potrf import potrf_panel_tail_full as jfull
+
+    rng = np.random.default_rng(19)
+    S, _, _ = _tail_inputs(rng, 1024, 256)
+    r0 = kidx * 256
+    pan = np.array(S[:, r0:r0 + 256])
+    pan[:r0] = rng.standard_normal((r0, 256))  # never read
+    blk = S[r0:r0 + 256, r0:r0 + 256]
+    sym = np.tril(blk) + np.tril(blk, -1).T
+    ref = np.asarray(jfull(jnp.asarray(sym), jnp.asarray(pan), kidx,
+                           interpret=True))
+    out = potrf_panel_tail_full(torch.tensor(sym), torch.tensor(pan),
+                                kidx).numpy()
+    assert _rel(out, ref) < 1e-5
+    assert not out[:r0].any()
+    tail = potrf_panel_tail(torch.tensor(sym), torch.tensor(pan[r0:]))
+    np.testing.assert_array_equal(out[r0:], tail.numpy())
+
+
+def test_potrf_panel_tail_non_hpd_and_shapes():
+    """A block that is not positive definite: the JAX kernel poisons some
+    columns, the port every row from the diagonal tile down, and K3c keeps
+    its zeros above. Any (Mt, w), float64 included."""
+    import jax.numpy as jnp
+    from elementalx.kernels.potrf import potrf_panel_tail as jtail
+
+    S, pan, sym = _tail_inputs(np.random.default_rng(20), 384, 128)
+    jref = np.asarray(jtail(jnp.asarray(-sym), jnp.asarray(pan),
+                            interpret=True))
+    assert np.isnan(jref).any()
+    assert np.isnan(potrf_panel_tail(torch.tensor(-sym),
+                                     torch.tensor(pan)).numpy()).all()
+    full = potrf_panel_tail_full(torch.tensor(-sym), torch.tensor(pan), 0)
+    assert bool(full.isnan().all())
+    full2 = potrf_panel_tail_full_plain(torch.tensor(-sym[:64, :64]),
+                                        torch.tensor(pan[:, :64]), 2)
+    assert not full2[:128].any() and bool(full2[128:].isnan().all())
+    rng = np.random.default_rng(21)
+    s = _spd(rng, 37, np.float64)
+    p = rng.standard_normal((101, 37))
+    out = potrf_panel_tail_plain(torch.tensor(s), torch.tensor(p)).numpy()
+    l11 = np.linalg.cholesky(s)
+    assert np.abs(out[:37] - l11).max() < 1e-12
+    assert _rel(out[37:], p[37:] @ np.linalg.inv(l11).T) < 1e-12
+
+
+@pytest.mark.parametrize("n", [64, 200])
+def test_symv_plain_vs_jax(n):
+    """Against JAX's symv_lower, whose CPU route reads a fully stored A
+    (float64, 1e-12); the port's plain version gives the same y when the
+    strict upper triangle holds NaN, and symv_lower_trailing reads the
+    trailing block at k0 exactly."""
+    import jax.numpy as jnp
+    from elementalx.kernels.symv import symv_lower as jsymv
+    from elementalx.kernels.symv import symv_lower_trailing as jtrail
+
+    rng = np.random.default_rng(22)
+    g = rng.standard_normal((n, n))
+    A, v = g + g.T, rng.standard_normal(n)
+    ref = np.asarray(jsymv(jnp.asarray(A), jnp.asarray(v)))
+    assert _rel(symv_lower(torch.tensor(A), torch.tensor(v)).numpy(),
+                ref) < 1e-12
+    An = A.copy()
+    An[np.triu_indices(n, 1)] = np.nan
+    assert _rel(symv_lower(torch.tensor(An), torch.tensor(v)).numpy(),
+                ref) < 1e-12
+    k0 = 37
+    rt = np.asarray(jtrail(jnp.asarray(A), jnp.asarray(v[k0:]), k0))
+    out = symv_lower_trailing(torch.tensor(An), torch.tensor(v[k0:]), k0)
+    assert _rel(out.numpy(), rt) < 1e-12
+    np.testing.assert_array_equal(
+        out.numpy(), symv_lower_plain(torch.tensor(An[k0:, k0:]),
+                                      torch.tensor(v[k0:])).numpy())
+
+
+def test_new_kernels_cpu_tensors_count_nothing():
+    before = (masked_rank_k.launches, potrf_panel_tail.launches,
+              potrf_panel_tail_full.launches, symv_lower.launches)
+    a = torch.eye(8)
+    masked_rank_k(True, 1.0, a, a, 1.0, a)
+    potrf_panel_tail(a[:4, :4] + 1e-3, a[:, :4])
+    potrf_panel_tail_full(a[:4, :4] + 1e-3, a[:, :4], 1)
+    symv_lower(a, a[0])
+    assert (masked_rank_k.launches, potrf_panel_tail.launches,
+            potrf_panel_tail_full.launches, symv_lower.launches) == before
+
+
+# ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -750,3 +947,198 @@ def test_hermitian_eig_on_card(cuda, alg):
     orth = (qd.mT @ qd - torch.eye(n, device=cuda, dtype=torch.float64)
             ).abs().max().item() / (eps * n)
     assert orth < 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (M, K, N, lower, dtype, transposed A, rtol)
+    (1000, 777, 1001, True, torch.float32, False, 1e-5),
+    (1000, 777, 1001, False, torch.float32, True, 1e-5),
+    (700, 300, 500, True, torch.float32, True, 1e-5),
+    (300, 64, 300, False, torch.float64, False, 1e-12),
+    (257, 129, 257, True, torch.bfloat16, False, 1e-2),
+    (1, 3, 1, True, torch.float32, False, 1e-5),
+])
+def test_masked_rank_k_kernel_vs_plain(cuda, case):
+    """K2 against its plain version (addmm-style product + where):
+    1e-5 of max|C| in float32, 1e-12 in float64, one bf16 step for
+    bfloat16; entries off the triangle equal C bit for bit."""
+    M, K, N, lower, dt, ta, rtol = case
+    g = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn((K, M) if ta else (M, K), generator=g, device=cuda)
+    a = (a.mT if ta else a).to(dt)
+    b = torch.randn((K, N), generator=g, device=cuda).to(dt)
+    c = torch.randn((M, N), generator=g, device=cuda).to(dt)
+    before = masked_rank_k.launches
+    out = masked_rank_k(lower, -1.0, a, b, 0.5, c)
+    ref = masked_rank_k_plain(lower, -1.0, a, b, 0.5, c)
+    torch.cuda.synchronize()
+    assert masked_rank_k.launches == before + 1
+    err = (out.double() - ref.double()).abs().max().item()
+    assert err <= rtol * max(ref.double().abs().max().item(), 1.0)
+    i = torch.arange(M, device=cuda)[:, None]
+    j = torch.arange(N, device=cuda)[None, :]
+    off = (j > i) if lower else (j < i)
+    assert torch.equal(out[off], c[off])
+
+
+@pytest.mark.cuda
+def test_masked_rank_k_kernel_nan_and_complex(cuda):
+    """beta = 0 with NaN in C gives NaN on the triangle, as in JAX; a
+    complex tensor raises."""
+    a = torch.ones((64, 8), device=cuda)
+    c = torch.full((64, 64), float("nan"), device=cuda)
+    out = masked_rank_k(True, 1.0, a, a.mT, 0.0, c)
+    torch.cuda.synchronize()
+    assert bool(out.isnan().all())
+    z = torch.ones((4, 4), dtype=torch.complex64, device=cuda)
+    with pytest.raises(NotImplementedError):
+        masked_rank_k(True, 1.0, z, z, 0.0, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Mt,w,low,dt", [
+    (300, 64, False, torch.float32), (1000, 200, False, torch.float32),
+    (1024, 256, True, torch.float32), (64, 64, False, torch.float32),
+    (500, 96, False, torch.float64), (40, 1, False, torch.float32),
+])
+def test_potrf_panel_tail_kernel_vs_plain(cuda, Mt, w, low, dt):
+    """K3b against its plain version: L11 equal to K3a's bit for bit;
+    L21 within 1e-5 of max|L| (float32), 1e-12 (float64), 5e-4 with
+    low_apply (bf16 operands rounded from two inverses that differ in
+    float32 rounding), and then more than ten times that error away from
+    K3b without low_apply (so the rounding is really done); a block that
+    is not positive definite gives NaN everywhere."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((w, w), generator=g, device=cuda, dtype=torch.float64)
+    sym = (x @ x.mT / w + 2 * torch.eye(w, device=cuda,
+                                        dtype=torch.float64)).to(dt)
+    pan = torch.randn((Mt, w), generator=g, device=cuda).to(dt)
+    pan[:w] = float("nan")  # rows of the diagonal block are never read
+    before = potrf_panel_tail.launches
+    out = potrf_panel_tail(sym, pan, low_apply=low)
+    ref = potrf_panel_tail_plain(sym, pan, low_apply=low)
+    l11, _ = potrf_block_inv(sym)
+    torch.cuda.synchronize()
+    assert potrf_panel_tail.launches == before + 1
+    assert torch.equal(out[:w], l11)
+    rtol = 5e-4 if low else (1e-12 if dt == torch.float64 else 1e-5)
+    if Mt > w:
+        err = (out[w:] - ref[w:]).abs().max().item()
+        assert err <= rtol * ref[w:].abs().max().item()
+        if low:
+            unrounded = potrf_panel_tail(sym, pan)
+            torch.cuda.synchronize()
+            assert (out[w:] - unrounded[w:]).abs().max().item() > 10 * err
+    bad = potrf_panel_tail(-sym, pan)
+    torch.cuda.synchronize()
+    assert bool(bad.isnan().all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kidx", [0, 1, 3])
+def test_potrf_panel_tail_full_kernel_matches_tail(cuda, kidx):
+    """K3c(pan_full, k)[k w:] equals K3b(pan_full[k w:]) bit for bit, with
+    exact zeros above."""
+    w, M = 128, 512
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((w, w), generator=g, device=cuda)
+    sym = x @ x.mT / w + 2 * torch.eye(w, device=cuda)
+    pan = torch.randn((M, w), generator=g, device=cuda)
+    before = potrf_panel_tail_full.launches
+    out = potrf_panel_tail_full(sym, pan, kidx)
+    ref = potrf_panel_tail(sym, pan[kidx * w:])
+    torch.cuda.synchronize()
+    assert potrf_panel_tail_full.launches == before + 1
+    assert torch.equal(out[kidx * w:], ref)
+    assert not bool(out[:kidx * w].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dt", [(1, torch.float32), (37, torch.float64),
+                                  (1000, torch.float32),
+                                  (2500, torch.float64)])
+def test_symv_kernel_vs_plain(cuda, n, dt):
+    """K7 with NaN in the strict upper triangle against the plain version
+    on the clean matrix: 1e-5 (float32, sums in another order) or 1e-12
+    (float64) of max|y|; the same bits on a second run; the trailing
+    form at k0 = n // 3."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    A = torch.randn((n, n), generator=g, device=cuda).to(dt)
+    v = torch.randn((n,), generator=g, device=cuda).to(dt)
+    An = A.clone()
+    iu = torch.triu_indices(n, n, 1, device=cuda)
+    An[iu[0], iu[1]] = float("nan")
+    before = symv_lower.launches
+    y = symv_lower(An, v)
+    y2 = symv_lower(An, v)
+    ref = symv_lower_plain(A, v)
+    torch.cuda.synchronize()
+    assert symv_lower.launches == before + 2
+    rtol = 1e-5 if dt == torch.float32 else 1e-12
+    assert (y - ref).abs().max().item() <= rtol * ref.abs().max().item()
+    assert torch.equal(y, y2)
+    k0 = n // 3
+    yt = symv_lower_trailing(An, v[k0:], k0)
+    rt = symv_lower_plain(A[k0:, k0:], v[k0:])
+    assert (yt - rt).abs().max().item() <= rtol * rt.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_symv_kernel_refuses_complex(cuda):
+    z = torch.ones((4, 4), dtype=torch.complex64, device=cuda)
+    with pytest.raises(NotImplementedError):
+        symv_lower(z, z[0])
+
+
+@pytest.mark.cuda
+def test_fused_tail_cholesky_on_card(cuda, monkeypatch):
+    """Cholesky at n=1024 (blocksize 128) with ELX_PALLAS_POTRF=1: eight
+    K3b launches, no K3a, and the factor the CPU's plain path gives to
+    1e-5 of max|L|."""
+    import elementalx_torch as Et
+    from elementalx_torch.entry import make_hpd_problem
+
+    monkeypatch.setenv("ELX_PALLAS_POTRF", "1")
+    a, _ = make_hpd_problem(1024, 1, device=cuda, seed=5)
+    before = (potrf_panel_tail.launches, potrf_block_inv.launches)
+    L = Et.Cholesky(Et.LOWER, Et.DistMatrix.from_global(a, grid=Et.Grid(cuda)),
+                    blocksize=128)
+    torch.cuda.synchronize()
+    assert (potrf_panel_tail.launches - before[0],
+            potrf_block_inv.launches - before[1]) == (8, 0)
+    ref = Et.Cholesky(Et.LOWER, Et.DistMatrix.from_global(
+        a.cpu(), grid=Et.Grid("cpu")), blocksize=128)
+    err = (L.data.cpu() - ref.data).abs().max().item()
+    assert err <= 1e-5 * ref.data.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_herk_and_symv_on_card_launch_k2_k7(cuda):
+    """The public Herk runs on one K2 launch, Her2k on two, Symv (LOWER,
+    one column) on one K7 launch; each matches the CPU to 1e-5."""
+    import elementalx_torch as Et
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    a = torch.randn((700, 130), generator=g, device=cuda)
+    c = torch.randn((700, 700), generator=g, device=cuda)
+    x = torch.randn((700, 1), generator=g, device=cuda)
+    grid, cpu = Et.Grid(cuda), Et.Grid("cpu")
+
+    def both(t):
+        return (Et.DistMatrix.from_global(t, grid=grid),
+                Et.DistMatrix.from_global(t.cpu(), grid=cpu))
+
+    (A, Ac), (C, Cc), (X, Xc) = both(a), both(c), both(x)
+    k2, k7 = masked_rank_k.launches, symv_lower.launches
+    H = Et.Herk(Et.LOWER, Et.NORMAL, -1.0, A, beta=1.0, C=C)
+    H2 = Et.Her2k(Et.UPPER, Et.NORMAL, 0.5, A, A)
+    Y = Et.Symv(Et.LOWER, 2.0, C, X)
+    torch.cuda.synchronize()
+    assert (masked_rank_k.launches - k2, symv_lower.launches - k7) == (3, 1)
+    for out, ref in ((H, Et.Herk(Et.LOWER, Et.NORMAL, -1.0, Ac, beta=1.0,
+                                 C=Cc)),
+                     (H2, Et.Her2k(Et.UPPER, Et.NORMAL, 0.5, Ac, Ac)),
+                     (Y, Et.Symv(Et.LOWER, 2.0, Cc, Xc))):
+        err = (out.data.cpu() - ref.data).abs().max().item()
+        assert err <= 1e-5 * ref.data.abs().max().item()
