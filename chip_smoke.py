@@ -1,6 +1,6 @@
 """Drive the port's main paths (HPD solve, LU solve, HermitianEig, the
-BLAS levels 2 and 3, the fused Cholesky panel tail, HermitianGenDefEig)
-on one NVIDIA GPU and check them.
+BLAS levels 2 and 3, the fused Cholesky panel tail, HermitianGenDefEig,
+level 1 and least squares) on one NVIDIA GPU and check them.
 
 Usage, from the root of the repository: ``python3 chip_smoke.py``
 
@@ -43,7 +43,23 @@ Phases (each raises on failure, so the script exits non-zero):
      the B-orthogonality and the launch counts, with the residual split
      by stage in float64 (HermitianEig's own residual on C gated too);
      and all three pencils at n=300 in float64 held against the same step
-     on the CPU.
+     on the CPU;
+ 12. K9 (axpby, scale, hadamard, fill, transpose) against its plain
+     versions, bit for bit: 16384^2 float32 (timed in turns against the
+     plain version and the library call), bfloat16, float64, a ragged
+     1000 x 777 case with .mT inputs, and the conjugate transpose of a
+     real input;
+ 13. the least-squares slice: every public function of lapack/qr.py,
+     lq.py, gqr.py and euclidean_min.py at about n=300 in float64 held
+     against the same call on the CPU; ``least_squares_step`` at
+     m = n = 16384, nrhs = 256 (QR) and at m = 8192, n = 16384 (the
+     minimum-norm LQ solution, three K9 transposes), and ExplicitQR at
+     n = 8192, each run twice, gated on the scaled backward error, the
+     minimum norm, the orthogonality and reconstruction of Q R, the
+     CholeskyQR2 fast panels and the launch counts; then the public
+     level-1 operations at 16384^2 with their K9 launches.
+Phases 4, 6, 8, 10 and 11 also read K9's launches (the residual Gemm's
+beta C is a K9 axpby) and gate that no K9 transpose runs on their paths.
 The line before the last is a JSON summary of the kernels, each with its
 bound (the larger of its bytes over 3.35 TB/s and its FP32 operations
 over 67 TFLOP/s, the H100 SXM's published peaks); the last line is
@@ -92,13 +108,16 @@ def main() -> None:
         gen_def_eig_step,
         hermitian_eig_step,
         hpd_solve_step,
+        least_squares_step,
         linear_solve_step,
         make_eig_problem,
         make_gendef_problem,
         make_hpd_problem,
+        make_ls_problem,
         make_lu_problem,
     )
     from elementalx_torch.kernels import common
+    from elementalx_torch.kernels import elementwise as k9
     from elementalx_torch.kernels.getrf import getrf_panel, getrf_panel_plain
     from elementalx_torch.kernels.latrd import latrd_panel, latrd_panel_plain
     from elementalx_torch.kernels.matmul import matmul, matmul_plain
@@ -120,7 +139,7 @@ def main() -> None:
         masked_rank_k,
         masked_rank_k_plain,
     )
-    from elementalx_torch.lapack import condense, sbr, tridiag_eig
+    from elementalx_torch.lapack import condense, qr, sbr, tridiag_eig
     from elementalx_torch.lapack.hermitian_eig import HermitianEigCtrl
 
     dev = torch.device("cuda", 0)
@@ -139,8 +158,8 @@ def main() -> None:
         return e0.elapsed_time(e1) / iters
 
     def device_profile(fn):
-        """(wall ms, {kernel name: device ms}) of one synchronised run of
-        fn under torch.profiler."""
+        """(wall ms, {kernel name: device ms}, device kernels run) of one
+        synchronised run of fn under torch.profiler."""
         from torch.profiler import ProfilerActivity, profile
 
         sync()
@@ -150,12 +169,13 @@ def main() -> None:
             fn()
             sync()
             wall = (time.perf_counter() - t0) * 1e3
-        by_name = {}
+        by_name, count = {}, 0
         for ev in prof.events():
             if ev.device_type == torch.autograd.DeviceType.CUDA:
+                count += 1
                 by_name[ev.name] = (by_name.get(ev.name, 0.0)
                                     + ev.time_range.elapsed_us() / 1e3)
-        return wall, by_name
+        return wall, by_name, count
 
     def time_pair(kernel, plain, iters):
         """Kernel and plain version in turns: plain, kernel, kernel, plain."""
@@ -164,6 +184,15 @@ def main() -> None:
         k2 = time_ms(kernel, iters)
         p2 = time_ms(plain, iters)
         return (k1 + k2) / 2, (p1 + p2) / 2
+
+    k9_entries = ("axpby", "scale", "hadamard", "fill", "transpose")
+
+    def k9_reset():
+        for name in k9_entries:
+            getattr(k9, name).launches = 0
+
+    def k9_counts():
+        return {name: getattr(k9, name).launches for name in k9_entries}
 
     # ---- 1. set-up ----
     smi = subprocess.run(
@@ -272,11 +301,13 @@ def main() -> None:
     sync()
     matmul.launches = 0
     potrf_block_inv.launches = 0
+    k9_reset()
     t0 = time.perf_counter()
     x, nrm = step(a, b)
     sync()
     first_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"K1": matmul.launches, "K3a": potrf_block_inv.launches}
+    launches = {"K1": matmul.launches, "K3a": potrf_block_inv.launches,
+                "K9": k9_counts()}
     t0 = time.perf_counter()
     step(a, b)
     sync()
@@ -290,6 +321,8 @@ def main() -> None:
     require(resid < 100, f"scaled residual {resid} >= 100")
     require(launches["K1"] > 0 and launches["K3a"] > 0,
             f"the main path did not launch every kernel: {launches}")
+    require(launches["K9"]["transpose"] == 0,
+            f"a K9 transpose on the HPD path: {launches}")
     print(f"slice HPDSolve + residual Gemm + Nrm2, n={n} nrhs={nrhs} f32: "
           f"{first_ms:.1f} ms (first run), {again_ms:.1f} ms (second run); "
           f"scaled residual max|AX-B|/(eps n max|B|) = {resid:.4f}; "
@@ -356,11 +389,13 @@ def main() -> None:
     sync()
     matmul.launches = 0
     getrf_panel.launches = 0
+    k9_reset()
     t0 = time.perf_counter()
     x, nrm = linear_solve_step(a, b)
     sync()
     first_ms = (time.perf_counter() - t0) * 1e3
-    lu_launches = {"K1": matmul.launches, "K4": getrf_panel.launches}
+    lu_launches = {"K1": matmul.launches, "K4": getrf_panel.launches,
+                   "K9": k9_counts()}
     t0 = time.perf_counter()
     linear_solve_step(a, b)
     sync()
@@ -376,6 +411,8 @@ def main() -> None:
     require(berr < 100, f"LU slice: scaled backward error {berr} >= 100")
     require(lu_launches["K1"] > 0 and lu_launches["K4"] > 0,
             f"the LU path did not launch every kernel: {lu_launches}")
+    require(lu_launches["K9"]["transpose"] == 0,
+            f"a K9 transpose on the LU path: {lu_launches}")
     del ad, xd, bd, r
     torch.linalg.solve(a, b)
     sync()
@@ -555,13 +592,14 @@ def main() -> None:
         ctrl = HermitianEigCtrl(tridiag_alg=alg)
         sync()
         matmul.launches = latrd_panel.launches = sb2tr.launches = 0
+        k9_reset()
         t0 = time.perf_counter()
         w, q, r = hermitian_eig_step(h, ctrl)
         sync()
         first_ms = (time.perf_counter() - t0) * 1e3
         eig_launches[alg] = {"K1": matmul.launches,
                              "K5": latrd_panel.launches,
-                             "K6": sb2tr.launches}
+                             "K6": sb2tr.launches, "K9": k9_counts()}
         t0 = time.perf_counter()
         hermitian_eig_step(h, ctrl)
         sync()
@@ -579,6 +617,8 @@ def main() -> None:
         lc = eig_launches[alg]
         require(lc["K1"] > 0 and lc["K5" if alg == "latrd" else "K6"] > 0,
                 f"the eig path ({alg}) did not launch its kernels: {lc}")
+        require(lc["K9"]["transpose"] == 0,
+                f"a K9 transpose on the eig path ({alg}): {lc}")
         print(f"slice HermitianEig + residual Gemm ({alg}), n={ne} f32: "
               f"{first_ms:.1f} ms (first run), {again_ms:.1f} ms (second "
               f"run); scaled residual max|HQ-QW|/(eps n max|w|) = "
@@ -808,13 +848,15 @@ def main() -> None:
         sync()
         matmul.launches = potrf_block_inv.launches = 0
         potrf_panel_tail.launches = 0
+        k9_reset()
         t0 = time.perf_counter()
         x, nrm = step(a, b)
         sync()
         first_ms = (time.perf_counter() - t0) * 1e3
         fused_launches = {"K1": matmul.launches,
                           "K3a": potrf_block_inv.launches,
-                          "K3b": potrf_panel_tail.launches}
+                          "K3b": potrf_panel_tail.launches,
+                          "K9": k9_counts()}
         t0 = time.perf_counter()
         step(a, b)
         sync()
@@ -825,7 +867,8 @@ def main() -> None:
                  / (eps * n * b.double().abs().max())).item()
         require(resid < 100, f"fused HPD slice: scaled residual {resid}")
         require(fused_launches["K3b"] == 32 and fused_launches["K3a"] == 0
-                and fused_launches["K1"] > 0,
+                and fused_launches["K1"] > 0
+                and fused_launches["K9"]["transpose"] == 0,
                 f"fused HPD slice launches {fused_launches}")
         print(f"slice HPDSolve with the fused tail (ELX_PALLAS_POTRF=1), "
               f"n={n} nrhs={nrhs} f32: {first_ms:.1f} ms (first run), "
@@ -834,7 +877,7 @@ def main() -> None:
         for label in ("fused tail", "default (K3a)"):
             if label != "fused tail":
                 os.environ.pop("ELX_PALLAS_POTRF", None)
-            wall, by_name = device_profile(lambda: step(a, b))
+            wall, by_name, _ = device_profile(lambda: step(a, b))
             busy = sum(by_name.values())
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
             print(f"HPD step profile ({label}), n={n} f32: wall {wall:.1f} "
@@ -955,13 +998,15 @@ def main() -> None:
         sync()
         matmul.launches = potrf_block_inv.launches = 0
         potrf_panel_tail.launches = latrd_panel.launches = sb2tr.launches = 0
+        k9_reset()
         t0 = time.perf_counter()
         wg, xg, rg = gen_def_eig_step(ga, gb, "AXBX")
         sync()
         gd_ms = (time.perf_counter() - t0) * 1e3
         gd_launches = {"K1": matmul.launches, "K3a": potrf_block_inv.launches,
                        "K3b": potrf_panel_tail.launches,
-                       "K5": latrd_panel.launches, "K6": sb2tr.launches}
+                       "K5": latrd_panel.launches, "K6": sb2tr.launches,
+                       "K9": k9_counts()}
     finally:
         os.environ.pop("ELX_PALLAS_POTRF", None)
     resid = rg.item()
@@ -978,6 +1023,8 @@ def main() -> None:
     require(gd_launches["K1"] > 0 and gd_launches["K3b"] > 0
             and gd_launches["K5"] + gd_launches["K6"] > 0,
             f"the GenDefEig path did not launch its kernels: {gd_launches}")
+    require(gd_launches["K9"]["transpose"] == 0,
+            f"a K9 transpose on the GenDefEig path: {gd_launches}")
     print(f"slice HermitianGenDefEig AXBX + residual Gemms, n={ng} f32 "
           f"(fused tail): {gd_ms:.1f} ms; scaled residual max|AX-BXW|/(eps n"
           f" (max|A| + max|w| max|B|) max|X|) = {resid:.4f}; "
@@ -1031,6 +1078,299 @@ def main() -> None:
     del Ld, Cd, ad, bd, xd, wd, xw, zd, R, den, wmax, rmax
     del ga, gb, wg, xg
 
+    # ---- 12. K9 against its plain versions ----
+    # Every entry rounds as its plain version does (one rounding per
+    # product and sum, bfloat16 in float32 with one rounding at the end),
+    # so the outputs must be equal bit for bit; max|err| is printed. The
+    # main-path shapes (16384^2 float32, axpby with beta = 1 as the
+    # residual Gemm runs it) are timed in turns against the plain version
+    # and against one library call: torch.add(y, x, alpha=a) for axpby,
+    # torch.mul, Tensor.fill_ on a preallocated array, x.mT.contiguous().
+    def k9_calls(x, y, al, be, rows, cols, dt):
+        """(name, kernel, plain, library call) for each K9 entry."""
+        buf = torch.empty((rows, cols), dtype=dt, device=dev)
+        return (
+            ("axpby", lambda: k9.axpby(al, x, be, y),
+             lambda: k9.axpby_plain(al, x, be, y),
+             (lambda: torch.add(y, x, alpha=al)) if be == 1.0 else
+             (lambda: torch.add(be * y, x, alpha=al))),
+            ("scale", lambda: k9.scale(al, x), lambda: k9.scale_plain(al, x),
+             lambda: torch.mul(x, al)),
+            ("hadamard", lambda: k9.hadamard(x, y),
+             lambda: k9.hadamard_plain(x, y), lambda: torch.mul(x, y)),
+            ("fill", lambda: k9.fill((rows, cols), al, dt, dev),
+             lambda: k9.fill_plain((rows, cols), al, dt, dev),
+             lambda: buf.fill_(al)),
+            ("transpose", lambda: k9.transpose(x),
+             lambda: k9.transpose_plain(x),
+             lambda: x.mT.contiguous()))
+
+    k9_main = {}
+    for label, rows, cols, dt, strided in (
+            ("16384^2 f32", 16384, 16384, torch.float32, False),
+            ("8192^2 bf16", 8192, 8192, torch.bfloat16, False),
+            ("4096^2 f64", 4096, 4096, torch.float64, False),
+            ("ragged 1000x777 .mT f32", 1000, 777, torch.float32, True)):
+        if strided:
+            x = randn(cols, rows, dtype=dt).mT
+            y = randn(cols, rows, dtype=dt).mT
+        else:
+            x, y = randn(rows, cols, dtype=dt), randn(rows, cols, dtype=dt)
+        main = label.startswith("16384")
+        for be in ((1.0, -1.7) if main else (-1.7,)):
+            for name, kern, plain, lib in k9_calls(x, y, 0.3, be, rows,
+                                                   cols, dt):
+                if name != "axpby" and be != 1.0 and main:
+                    continue
+                out, ref = kern(), plain()
+                sync()
+                require(out.shape == ref.shape and out.dtype == ref.dtype
+                        and out.is_contiguous(),
+                        f"K9 {name} {label}: shape/type/layout")
+                err = (out.double() - ref.double()).abs().max().item() \
+                    if out.numel() else 0.0
+                require(torch.equal(out, ref),
+                        f"K9 {name} {label}: max|kernel - plain| {err}, "
+                        "not equal bit for bit")
+                extra = ""
+                if main:
+                    ms, plain_ms = time_pair(kern, plain, 10)
+                    lib_ms = time_ms(lib, 10)
+                    item = x.element_size()
+                    n_in, n_out, ops = {"axpby": (2, 1, 3),
+                                        "scale": (1, 1, 1),
+                                        "hadamard": (2, 1, 1),
+                                        "fill": (0, 1, 0),
+                                        "transpose": (1, 1, 0)}[name]
+                    bound = roofline(ops * rows * cols,
+                                     item * (n_in + n_out) * rows * cols)
+                    extra = (f"  kernel {ms:.4f} ms ({bound[0] / ms:.1%} of "
+                             f"the {bound[1]} bound {bound[0]:.4f} ms)  plain "
+                             f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms")
+                    if be == 1.0:
+                        k9_main[name] = (err, ms, plain_ms, lib_ms, bound)
+                print(f"K9 {name} {label}"
+                      f"{f' beta={be}' if name == 'axpby' else ''}: "
+                      f"max_abs_err {err:.3e}, equal bit for bit{extra}")
+                del out, ref
+        if strided or dt == torch.float64:
+            out, ref = k9.transpose(x, True), k9.transpose_plain(x, True)
+            sync()
+            require(torch.equal(out, ref) and torch.equal(out, x.mT),
+                    f"K9 transpose conjugate=True {label}: not x^T")
+            print(f"K9 transpose conjugate=True {label} (real input): "
+                  f"equal to x^T bit for bit")
+        del x, y
+
+    # ---- 13. the least-squares slice ----
+    # (d) first: each public function of lapack/qr.py, lq.py, gqr.py and
+    # euclidean_min.py at about n=300 in float64 on the card against the
+    # same call on the CPU (every wrapper on its plain version there): every
+    # output within 1e-10 of its largest entry (float64 products summed in
+    # another order; LAPACK's geqrf signs on both sides), ColPivQR's pivots
+    # equal.
+    def f64(m_, n_, seed):
+        gg = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn((m_, n_), generator=gg, device=dev,
+                           dtype=torch.float64)
+
+    tall, wide = f64(320, 300, 11), f64(280, 300, 12)
+    rhs_t, rhs_w = f64(320, 4, 13), f64(280, 4, 14)
+    sq, con, con_r = f64(300, 300, 15), f64(40, 300, 16), f64(40, 4, 17)
+    gm_b = f64(320, 320, 18)
+    Lq = Et.lapack
+    public = {
+        "QR": lambda D: Lq.QR(D(tall)),
+        "ApplyQ": lambda D: Lq.ApplyQ(True, Lq.QR(D(tall)), D(rhs_t)),
+        "ExplicitQR": lambda D: Lq.ExplicitQR(D(tall)),
+        "ExplicitQR full": lambda D: Lq.ExplicitQR(D(wide), thin=False),
+        "CholeskyQR": lambda D: Lq.CholeskyQR(D(tall)),
+        "TSQR": lambda D: Lq.TSQR(D(tall)),
+        "ColPivQR": lambda D: Lq.ColPivQR(D(tall)),
+        "LQ": lambda D: Lq.LQ(D(wide)),
+        "ExplicitLQ": lambda D: Lq.ExplicitLQ(D(wide)),
+        "ExplicitRQ": lambda D: Lq.ExplicitRQ(D(wide)),
+        "GQR": lambda D: Lq.GQR(D(tall), D(gm_b)),
+        "GRQ": lambda D: Lq.GRQ(D(wide), D(sq)),
+        "LeastSquares over": lambda D: Lq.LeastSquares(Et.NORMAL, D(tall),
+                                                       D(rhs_t)),
+        "LeastSquares under": lambda D: Lq.LeastSquares(Et.NORMAL, D(wide),
+                                                        D(rhs_w)),
+        "LeastSquares adjoint": lambda D: Lq.LeastSquares(
+            Et.ADJOINT, D(wide.mT.contiguous()), D(rhs_w)),
+        "Ridge": lambda D: Lq.Ridge(Et.NORMAL, D(tall), D(rhs_t), 0.7),
+        "Tikhonov": lambda D: Lq.Tikhonov(Et.NORMAL, D(tall), D(rhs_t),
+                                          D(sq)),
+        "LSE": lambda D: Lq.LSE(D(tall), D(con), D(rhs_t), D(con_r)),
+        "GLM": lambda D: Lq.GLM(D(tall[:, :40]), D(gm_b), D(rhs_t)),
+    }
+
+    def tensors(out):
+        if isinstance(out, Et.DistMatrix):
+            return [out.data]
+        if isinstance(out, torch.Tensor):
+            return [out]
+        if hasattr(out, "perm"):
+            return [out.perm]
+        return [t for o in out for t in tensors(o)]
+
+    card_grid, cpu_grid = Et.Grid(dev), Et.Grid("cpu")
+    worst = 0.0
+    for name, fn in public.items():
+        got = tensors(fn(lambda t: Et.DistMatrix.from_global(
+            t, grid=card_grid)))
+        want = tensors(fn(lambda t: Et.DistMatrix.from_global(
+            t.cpu(), grid=cpu_grid)))
+        require(len(got) == len(want), f"{name} n~300 f64: outputs differ")
+        for g_, w_ in zip(got, want):
+            g_ = g_.cpu()
+            require(g_.shape == w_.shape,
+                    f"{name} n~300 f64: shapes {tuple(g_.shape)} "
+                    f"{tuple(w_.shape)}")
+            if not w_.is_floating_point():
+                require(torch.equal(g_, w_), f"{name} n~300: pivots differ")
+                continue
+            scale_ = max(w_.abs().max().item(), 1e-300)
+            rel = (g_ - w_).abs().max().item() / scale_
+            require(rel <= 1e-10, f"{name} n~300 f64: card and CPU differ "
+                                  f"by {rel} of max|out|")
+            worst = max(worst, rel)
+    print(f"least-squares family n~300 f64 ({len(public)} calls: "
+          f"{', '.join(public)}): card vs CPU within {worst:.3e} of max|out|")
+    del tall, wide, rhs_t, rhs_w, sq, con, con_r, gm_b
+
+    def backward_error(a_, x_, b_):
+        """||B - A X||_inf / (eps n ||A||_inf ||X||_inf) in float64, n the
+        width of A."""
+        ad, xd, bd = a_.double(), x_.double(), b_.double()
+        r_ = bd - ad @ xd
+        return (r_.abs().sum(1).max() / (eps * a_.shape[1]
+                                         * ad.abs().sum(1).max()
+                                         * xd.abs().sum(1).max())).item()
+
+    def counted(fn):
+        """Run fn once with every launch count and panel count at 0;
+        (output, wall ms, counts)."""
+        sync()
+        matmul.launches = 0
+        k9_reset()
+        qr.cholqr_panels.update(fast=0, slow=0, short=0)
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        return out, ms, {"K1": matmul.launches, "K9": k9_counts(),
+                         "cholqr": dict(qr.cholqr_panels)}
+
+    ls_runs = {}
+    for label, m13, n13 in (("(a) QR", n, n), ("(b) LQ", n // 2, n)):
+        a, b = make_ls_problem(m13, n13, nrhs, device=dev)
+        (x, nrm), first_ms, lc = counted(lambda: least_squares_step(a, b))
+        _, again_ms, _ = counted(lambda: least_squares_step(a, b))
+        ls_runs[label] = lc
+        x = x[:n13]
+        require(tuple(x.shape) == (n13, nrhs) and bool(torch.isfinite(x).all())
+                and bool(torch.isfinite(nrm)),
+                f"LS {label}: non-finite or misshapen X")
+        berr = backward_error(a, x, b)
+        require(berr < 100, f"LS {label}: scaled backward error {berr}")
+        require(lc["K1"] > 0 and lc["K9"]["axpby"] > 0
+                and lc["cholqr"]["fast"] > 0,
+                f"LS {label}: the path did not take its kernels: {lc}")
+        extra = ""
+        if m13 < n13:
+            require(lc["K9"]["transpose"] == 3 and lc["K9"]["fill"] == 1,
+                    f"LS {label}: K9 launches {lc['K9']}")
+            ad = a.double()
+            xref = ad.mT @ torch.linalg.solve(ad @ ad.mT, b.double())
+            mn = ((x.double() - xref).norm() / x.double().norm()).item()
+            require(mn < 1e-3, f"LS {label}: ||X - A^H (A A^H)^-1 B|| / ||X||"
+                               f" = {mn}")
+            extra = f"; minimum norm ||X - A^H(AA^H)^-1 B||/||X|| {mn:.3e}"
+            del ad, xref
+        torch.linalg.lstsq(a, b)
+        _, lstsq_ms = stage(lambda: torch.linalg.lstsq(a, b))
+        print(f"slice least_squares_step {label}, m={m13} n={n13} "
+              f"nrhs={nrhs} f32: {first_ms:.1f} ms (first run), "
+              f"{again_ms:.1f} ms (second run); scaled backward error "
+              f"||B-AX||_inf/(eps n ||A||_inf ||X||_inf) = {berr:.4e}{extra}; "
+              f"||R||_F = {nrm.item():.4e}; launches {lc}; "
+              f"torch.linalg.lstsq (context) {lstsq_ms:.1f} ms")
+        if m13 == n13:
+            wall, by_name, count = device_profile(
+                lambda: least_squares_step(a, b))
+            busy = sum(by_name.values())
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+            print(f"LS step profile {label}, n={n13} f32: wall {wall:.1f} ms,"
+                  f" device busy {busy:.1f} ms (idle "
+                  f"{100 * (1 - busy / wall):.1f}%), {count} device kernels; "
+                  + "; ".join(f"{k[:40]} {v:.1f} ms ({100 * v / wall:.1f}%)"
+                              for k, v in top))
+        del a, b, x
+
+    nq = 8192
+    a = randn(nq, nq)
+    A13 = Et.DistMatrix.from_global(a, grid=Et.Grid(dev))
+    (Q13, R13), first_ms, lc = counted(lambda: Et.ExplicitQR(A13))
+    _, again_ms, _ = counted(lambda: Et.ExplicitQR(A13))
+    ls_runs["(c) ExplicitQR"] = lc
+    qd, rd = Q13.data.double(), R13.data.double()
+    orth = ((qd.mT @ qd - torch.eye(nq, device=dev, dtype=torch.float64))
+            .abs().max() / (eps * nq)).item()
+    recon = ((a.double() - qd @ rd).abs().max()
+             / (eps * nq * a.abs().max())).item()
+    require(orth < 100 and recon < 100,
+            f"ExplicitQR n={nq}: orthogonality {orth}, reconstruction {recon}")
+    require(lc["K1"] > 0 and lc["cholqr"]["fast"] > 0,
+            f"ExplicitQR n={nq}: launches {lc}")
+    print(f"slice ExplicitQR n={nq} f32: {first_ms:.1f} ms (first run), "
+          f"{again_ms:.1f} ms (second run); max|Q^TQ-I|/(eps n) = "
+          f"{orth:.4f}; max|A-QR|/(eps n max|A|) = {recon:.4f}; launches {lc}")
+    del a, A13, Q13, R13, qd, rd
+
+    # the public level-1 operations that run on K9, at 16384^2 float32,
+    # each against its plain version (bit for bit)
+    g1 = Et.Grid(dev)
+    xa, ya = randn(n, n), randn(n, n)
+    X1 = Et.DistMatrix.from_global(xa, grid=g1)
+    Y1 = Et.DistMatrix.from_global(ya, grid=g1)
+    l1_calls = (
+        ("Scale", lambda: Et.Scale(0.3, X1), lambda: k9.scale_plain(0.3, xa)),
+        ("SafeScale", lambda: Et.SafeScale(3.0, 4.0, X1),
+         lambda: k9.scale_plain(3.0, k9.scale_plain(0.25, xa))),
+        ("Axpy", lambda: Et.Axpy(0.3, X1, Y1),
+         lambda: k9.axpby_plain(0.3, xa, 1.0, ya)),
+        ("Axpby", lambda: Et.Axpby(0.3, X1, -1.7, Y1),
+         lambda: k9.axpby_plain(0.3, xa, -1.7, ya)),
+        ("Add", lambda: Et.Add(X1, Y1), lambda: xa + ya),
+        ("Subtract", lambda: Et.Subtract(X1, Y1), lambda: xa - ya),
+        ("Hadamard", lambda: Et.Hadamard(X1, Y1), lambda: xa * ya),
+        ("Zero", lambda: Et.Zero(X1), lambda: torch.zeros_like(xa)),
+        ("Fill", lambda: Et.Fill(X1, 2.5), lambda: torch.full_like(xa, 2.5)),
+        ("Transpose", lambda: Et.Transpose(X1), lambda: xa.mT.contiguous()),
+        ("Adjoint", lambda: Et.Adjoint(X1), lambda: xa.mT.contiguous()))
+    sync()
+    k9_reset()
+    t0 = time.perf_counter()
+    outs = [call() for _, call, _ in l1_calls]
+    sync()
+    l1_ms = (time.perf_counter() - t0) * 1e3
+    l1_launches = k9_counts()
+    require(l1_launches == {"axpby": 4, "scale": 3, "hadamard": 1, "fill": 2,
+                            "transpose": 2},
+            f"level-1 K9 launches {l1_launches}")
+    for (name, _, ref), out in zip(l1_calls, outs):
+        require(torch.equal(out.data, ref()),
+                f"level-1 {name} at {n}^2: not its plain result")
+    print(f"level 1 ({', '.join(c[0] for c in l1_calls)}) at {n}^2 f32: "
+          f"{l1_ms:.1f} ms together; K9 launches {l1_launches}; each equal "
+          f"to its plain result bit for bit")
+    del xa, ya, X1, Y1, outs
+    k9_launches = {name: sum(r["K9"][name] for r in ls_runs.values())
+                   + l1_launches[name] for name in k9_entries}
+    require(all(v > 0 for v in k9_launches.values()),
+            f"a K9 entry never launched on phase 13's paths: {k9_launches}")
+
     def row(name, source, replaces, launches, main, lib_ms=None):
         err, ms, plain_ms = main[:3]
         (b_ms, b_by) = main[-1]
@@ -1068,6 +1408,12 @@ def main() -> None:
         row("K7 lower-triangle symv (symv_lower)", csrc + "symv.cu",
             "elementalx/kernels/symv.py:66", blas_launches["K7"], k7_main,
             k7_main[3]),
+    ] + [
+        row(f"K9 {name}", csrc + "elementwise.cu",
+            f"elementalx/kernels/elementwise.py:{line}", k9_launches[name],
+            k9_main[name], k9_main[name][3])
+        for name, line in (("axpby", 56), ("scale", 67), ("hadamard", 78),
+                           ("fill", 88), ("transpose", 115))
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,12 @@ The ported slices: the HPD-solve main path (a one-device Grid, an
 panel tail under ELX_PALLAS_POTRF=1), the LU path (Permutation, LU,
 LUFullPiv, LUMod and LinearSolve), the HermitianEig path
 (HermitianTridiag, HermitianTridiagEig, HermitianEig and its subset
-forms), the BLAS levels 2 and 3 (all of them but MultiShiftTrsm) and
-HermitianGenDefEig. The namespace is flat, as the reference's El:: is;
-the top-level SolveAfter is the Cholesky one, and the LU one is
-``lapack.lu.SolveAfter``.
+forms), the BLAS levels 1, 2 and 3 (all of them but MultiShiftTrsm),
+HermitianGenDefEig, and QR/LQ/RQ/GQR/GRQ with the least-squares family
+(LeastSquares, Ridge, Tikhonov, LSE, GLM). The namespace is flat, as the
+reference's El:: is: every public blas/lapack entry point is lifted to the
+package root. The top-level SolveAfter is the Cholesky one, and the LU
+one is ``lapack.lu.SolveAfter``.
 """
 
 __version__ = "0.1.0"
@@ -77,6 +79,12 @@ from .blas import (  # noqa: F401,E402
     TwoSidedTrsm,
 )
 from .lapack import (  # noqa: F401,E402
+    GLM,
+    GQR,
+    GRQ,
+    LQ,
+    LSE,
+    QR,
     LU,
     Cholesky,
     HermitianEig,
@@ -90,6 +98,17 @@ from .lapack import (  # noqa: F401,E402
     LinearSolve,
     LUFullPiv,
     LUMod,
+    LeastSquares,
     Permutation,
+    Ridge,
     SolveAfter,
+    Tikhonov,
 )
+
+# Flat like El::: lift every public blas/lapack entry point to the package
+# root, never overriding a name bound above (as the JAX package does).
+for _mod in (blas, lapack):
+    for _name, _obj in vars(_mod).items():
+        if _name[:1].isupper() and callable(_obj):
+            globals().setdefault(_name, _obj)
+del _mod, _name, _obj

@@ -1,18 +1,8 @@
 """BLAS-like operations: Gemm, Trsm, levels 1, 2 and 3."""
 
 from .gemm import Gemm, local_gemm  # noqa: F401
-from .level1 import (  # noqa: F401
-    Adjoint,
-    DiagonalSolve,
-    FillDiagonal,
-    GetDiagonal,
-    MakeHermitian,
-    MakeSymmetric,
-    MakeTrapezoidal,
-    MaxAbs,
-    Nrm2,
-    Transpose,
-)
+from . import level1  # noqa: F401
+from .level1 import *  # noqa: F401,F403
 from .level2 import (  # noqa: F401
     ApplyGivensSequence,
     Gemv,

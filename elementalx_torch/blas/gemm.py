@@ -7,7 +7,8 @@ padded operands. Here that product is ``local_gemm``, which on a CUDA
 tensor launches the hand-written K1 kernel (kernels/matmul.py).
 
 Orientations are normalised to NN through transposed views, which K1
-reads in place through their strides.
+reads in place through their strides; beta C is accumulated through
+level 1 (K9 on CUDA tensors).
 """
 
 from __future__ import annotations
@@ -42,30 +43,41 @@ def local_gemm(a: torch.Tensor, b: torch.Tensor,
 
 
 def _orient(X: DistMatrix, orientation: Orientation) -> DistMatrix:
-    from .level1 import Adjoint, Transpose
-
+    """op(X) as a view: X's data as ``.mT`` (or ``.mH``) with the dist tags
+    swapped. K1 and K2 read it in place through its strides; level 1's
+    Transpose and Adjoint would write a copy."""
     if orientation == NORMAL:
         return X
     if orientation == TRANSPOSE:
-        return Transpose(X)
-    if orientation == ADJOINT:
-        return Adjoint(X)
-    raise ValueError(orientation)
+        d = X.data.mT
+    elif orientation == ADJOINT:
+        d = X.data.mH
+    else:
+        raise ValueError(orientation)
+    return DistMatrix.from_padded(d, X.n, X.m, X.row_dist, X.col_dist,
+                                  X.grid, X.wrap)
 
 
 def _accumulate(C: Optional[DistMatrix], prod_dm: DistMatrix, alpha,
                 beta) -> DistMatrix:
-    dt = prod_dm.dtype
+    """alpha prod + beta C through level 1, as Gemm.cpp scales C by beta
+    and accumulates: Axpby for beta != 0 and Scale for beta = 0 with
+    alpha != 1 (K9 on CUDA tensors), in the product's type, then cast to
+    C's type."""
+    from .level1 import Axpby, Scale
+
     if C is None or (isinstance(beta, (int, float)) and beta == 0):
-        out = prod_dm.with_data(prod_dm.data * alpha)
+        out = prod_dm
+        if not (isinstance(alpha, (int, float)) and alpha == 1):
+            out = Scale(alpha, prod_dm)
         if C is not None:
             out = DistMatrix.from_padded(out.data.to(C.dtype), C.m, C.n,
                                          C.col_dist, C.row_dist, C.grid,
                                          C.wrap)
         return out
     Cd = C.redistribute(MC, MR)
-    data = (alpha * prod_dm.data + beta * Cd.data.to(dt)).to(C.dtype)
-    return Cd.with_data(data)
+    acc = Axpby(alpha, prod_dm, beta, Cd.with_data(Cd.data.to(prod_dm.dtype)))
+    return Cd.with_data(acc.data.to(C.dtype))
 
 
 def Gemm(orientA: Orientation, orientB: Orientation, alpha, A: DistMatrix,

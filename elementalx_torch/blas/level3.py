@@ -39,32 +39,21 @@ from ..core.types import (
     NORMAL,
     Orientation,
     RIGHT,
-    TRANSPOSE,
     UNIT,
     UPPER,
     UnitOrNonUnit,
     UpperOrLower,
 )
 from ..kernels.trrk import masked_rank_k
-from .gemm import Gemm
+from .gemm import Gemm, _orient as _op
 from .level1 import (
-    Adjoint,
     DiagonalSolve,
     FillDiagonal,
     GetDiagonal,
     MakeSymmetric,
     MakeTrapezoidal,
-    Transpose,
 )
 from .trsm import Trsm
-
-
-def _op(X: DistMatrix, orientation: Orientation) -> DistMatrix:
-    if orientation == NORMAL:
-        return X
-    if orientation == TRANSPOSE:
-        return Transpose(X)
-    return Adjoint(X)
 
 
 def _data(X: DistMatrix) -> torch.Tensor:

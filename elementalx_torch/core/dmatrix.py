@@ -205,6 +205,11 @@ class DistMatrix:
                 f"DistMatrix padding invariant violated: |pad| sum = {bad}")
 
     # ---- materialisation ----
+    def replicated(self) -> torch.Tensor:
+        """The padded data as every process sees it ([*,*]); on a 1 x 1
+        grid, the data itself."""
+        return self.data
+
     def global_array(self) -> np.ndarray:
         """The logical matrix as a host numpy array (bfloat16 comes back as
         float32, which numpy can hold)."""

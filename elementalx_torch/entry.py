@@ -1,5 +1,5 @@
 """The ported main paths as steps: the HPD solve, the LU solve, the
-Hermitian and the generalized definite eigensolvers.
+Hermitian and the generalized definite eigensolvers, least squares.
 
 Counterpart of ``__graft_entry__.entry()``: an HPD solve (Cholesky and two
 triangular solves), the residual Gemm R = B - A X, and its norm, on a
@@ -13,7 +13,10 @@ the residual Gemm and its norm, on a general matrix from
 residual product H Q through Gemm, and the scaled residual, on a matrix
 from ``make_eig_problem``. ``gen_def_eig_step`` is HermitianGenDefEig on
 a pencil from ``make_gendef_problem``, with its residual products through
-Gemm.
+Gemm. ``least_squares_step`` is LeastSquares (QR for m >= n, the
+minimum-norm LQ solution for m < n; BASELINE config 3's QR run as a
+solve), the residual B - A X through Gemm (its beta C through level 1,
+K9) and its norm, on a problem from ``make_ls_problem``.
 """
 
 from __future__ import annotations
@@ -27,7 +30,13 @@ from .blas import Gemm, Nrm2
 from .core.dmatrix import DistMatrix
 from .core.grid import Grid
 from .core.types import LOWER, NORMAL
-from .lapack import HermitianEig, HermitianGenDefEig, HPDSolve, LinearSolve
+from .lapack import (
+    HermitianEig,
+    HermitianGenDefEig,
+    HPDSolve,
+    LeastSquares,
+    LinearSolve,
+)
 from .lapack.hermitian_eig import HermitianEigCtrl
 
 
@@ -163,6 +172,35 @@ def gen_def_eig_step(a: torch.Tensor, b: torch.Tensor,
     eps = torch.finfo(a.dtype).eps
     xmax = torch.max(torch.abs(x))
     return w, x, torch.max(torch.abs(D)) / (eps * n * scale * xmax)
+
+
+def make_ls_problem(m: int, n: int, nrhs: int,
+                    dtype: torch.dtype = torch.float32,
+                    device: Union[torch.device, str, None] = None,
+                    seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a, b) for least squares: a standard normal m x n matrix over
+    sqrt(n) and a standard normal m x nrhs b, drawn on ``device`` from a
+    generator seeded with ``seed``."""
+    dev = torch.device(device) if device is not None else Grid.default().device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((m, n), generator=gen, device=dev) / math.sqrt(n)
+    b = torch.randn((m, nrhs), generator=gen, device=dev)
+    return a.to(dtype), b.to(dtype)
+
+
+def least_squares_step(a: torch.Tensor, b: torch.Tensor,
+                       grid: Optional[Grid] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """X = argmin ||A X - B|| through LeastSquares(NORMAL, A, B) (the
+    minimum-norm X when A is wide), then ||B - A X|| through Gemm (beta = 1,
+    so K9's axpby) and Nrm2. Returns (X's padded data, the residual
+    norm)."""
+    grid = grid or Grid(a.device)
+    A = DistMatrix.from_global(a, grid=grid)
+    B = DistMatrix.from_global(b, grid=grid)
+    X = LeastSquares(NORMAL, A, B)
+    R = Gemm(NORMAL, NORMAL, -1.0, A, X, beta=1.0, C=B)
+    return X.data, Nrm2(R)
 
 
 def entry(n: int = 256, nrhs: int = 16, dtype: torch.dtype = torch.float32,

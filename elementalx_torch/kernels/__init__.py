@@ -1,6 +1,18 @@
 """Hand-written CUDA kernels for Hopper, each with its plain PyTorch
 version (the path CPU tensors take) and a launch counter."""
 
+from .elementwise import (  # noqa: F401
+    axpby,
+    axpby_plain,
+    fill,
+    fill_plain,
+    hadamard,
+    hadamard_plain,
+    scale,
+    scale_plain,
+    transpose,
+    transpose_plain,
+)
 from .getrf import (  # noqa: F401
     getrf_panel,
     getrf_panel_plain,

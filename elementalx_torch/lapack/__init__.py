@@ -1,10 +1,13 @@
 """LAPACK-like drivers of the ported slices: HPD solve, LU, HermitianEig
-and HermitianGenDefEig."""
+and HermitianGenDefEig, QR/LQ/RQ/GQR/GRQ and the least-squares family."""
 
 from . import (  # noqa: F401
     cholesky,
     condense,
+    euclidean_min,
+    gqr,
     hermitian_eig,
+    lq,
     lu,
     perm,
     qr,
@@ -25,3 +28,15 @@ from .hermitian_eig import (  # noqa: F401
     HermitianGenDefEig,
 )
 from .tridiag_eig import HermitianTridiagEig  # noqa: F401
+from .qr import (  # noqa: F401
+    QR,
+    ApplyQ,
+    CholeskyQR,
+    ColPivQR,
+    ExplicitQR,
+    QRFactorization,
+    TSQR,
+)
+from .lq import LQ, ExplicitLQ, ExplicitRQ, LQFactorization  # noqa: F401
+from .gqr import GQR, GRQ  # noqa: F401
+from .euclidean_min import GLM, LSE, LeastSquares, Ridge, Tikhonov  # noqa: F401

@@ -1,6 +1,7 @@
 """Port parity: the kernels K1 (local GEMM), K2 (masked rank-k update),
 K3a (Cholesky diagonal block), K3b/K3c (fused panel tail), K4 (pivoted LU
-panel), K5 (latrd panel), K6 (bulge chase) and K7 (lower-triangle symv).
+panel), K5 (latrd panel), K6 (bulge chase), K7 (lower-triangle symv) and
+K9 (the level-1 elementwise kernels and the tiled transpose).
 
 On the CPU each wrapper takes its plain PyTorch version; those are held
 against the JAX package's Pallas kernels run in interpret mode, as the JAX
@@ -16,6 +17,18 @@ import pytest
 import torch
 
 from elementalx_torch.kernels import common
+from elementalx_torch.kernels.elementwise import (
+    axpby,
+    axpby_plain,
+    fill,
+    fill_plain,
+    hadamard,
+    hadamard_plain,
+    scale,
+    scale_plain,
+    transpose,
+    transpose_plain,
+)
 from elementalx_torch.kernels.getrf import (
     getrf_panel,
     getrf_panel_plain,
@@ -610,6 +623,121 @@ def test_new_kernels_cpu_tensors_count_nothing():
 
 
 # ---------------------------------------------------------------------------
+# K9 on the CPU: the plain versions against the JAX Pallas kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_elementwise_plain_vs_pallas_interpret(dtype, monkeypatch):
+    """The five JAX kernels in interpret mode (``on_tpu`` patched to True
+    for this test only) against the plain versions on (8, 128)-tileable
+    inputs. scale, hadamard, fill and transpose round once on both sides:
+    equal bit for bit. axpy is a product and a sum, which XLA may contract
+    into one fused multiply-add (one rounding) where the plain version
+    rounds twice: float32 within 1e-6 of max|y + ax|, bfloat16 (the
+    kernel rounds each op to bfloat16, the plain version once) within one
+    bfloat16 step, 1e-2."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+    import elementalx.kernels.elementwise as jew
+
+    monkeypatch.setattr(jew, "on_tpu", lambda: True)
+    rng = np.random.default_rng(30)
+    x = rng.standard_normal((16, 256)).astype(np.float32)
+    y = rng.standard_normal((16, 256)).astype(np.float32)
+    sq = rng.standard_normal((128, 256)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jx, jy, jsq = (jnp.asarray(v, jdt) for v in (x, y, sq))
+    tx, ty, tsq = (torch.tensor(v).to(tdt) for v in (x, y, sq))
+    with pltpu.force_tpu_interpret_mode():
+        refs = {"axpy": jew.axpy(0.75, jx, jy), "scale": jew.scale(-1.5, jx),
+                "hadamard": jew.hadamard(jx, jy),
+                "fill": jew.fill((16, 256), 2.5, jdt),
+                "transpose": jew.transpose(jsq)}
+    outs = {"axpy": axpby(0.75, tx, 1.0, ty), "scale": scale(-1.5, tx),
+            "hadamard": hadamard(tx, ty),
+            "fill": fill((16, 256), 2.5, tdt),
+            "transpose": transpose(tsq)}
+    for name, ref in refs.items():
+        out = outs[name].float().numpy()
+        ref = np.asarray(ref.astype(jnp.float32))
+        assert out.shape == ref.shape, name
+        if name == "axpy":
+            tol = 1e-6 if dtype == "float32" else 1e-2
+            assert _rel(out, ref) <= tol
+        else:
+            np.testing.assert_array_equal(out, ref, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_elementwise_plain_contract(dtype):
+    """float64 and complex128 against numpy on ragged shapes and ``.mT``
+    inputs (1e-15 relative: one or two roundings); every output is a new
+    contiguous tensor."""
+    rng = np.random.default_rng(31)
+
+    def mk(*shape):
+        a = rng.standard_normal(shape)
+        if dtype == np.complex128:
+            a = a + 1j * rng.standard_normal(shape)
+        return a
+
+    x, y, w = mk(7, 5), mk(7, 5), mk(5, 7)
+    tx, ty, tw = torch.tensor(x), torch.tensor(y), torch.tensor(w).mT
+    outs = [axpby(0.5, tx, -2.0, ty), scale(3.0, tw), hadamard(tx, tw),
+            transpose(tw), transpose(tx, conjugate=True),
+            fill((7, 5), 1.25, tx.dtype, extent=(4, 3))]
+    refs = [-2.0 * y + 0.5 * x, 3.0 * w.T, x * w.T, w, x.conj().T,
+            np.pad(np.full((4, 3), 1.25), ((0, 3), (0, 2)))]
+    for out, ref in zip(outs, refs):
+        assert out.is_contiguous()
+        assert out.data_ptr() not in (tx.data_ptr(), ty.data_ptr(),
+                                      tw.data_ptr())
+        assert np.abs(out.numpy() - ref).max() <= 1e-15 * np.abs(ref).max()
+    assert axpby(0.5, tx, -2.0, ty).dtype == ty.dtype
+    assert fill((2, 3), 7.0, torch.float64).eq(7.0).all()
+
+
+def test_elementwise_cpu_tensors_count_nothing():
+    before = (axpby.launches, scale.launches, hadamard.launches,
+              fill.launches, transpose.launches)
+    a = torch.ones((4, 3))
+    axpby(1.0, a, 1.0, a)
+    scale(2.0, a)
+    hadamard(a, a)
+    fill((4, 3), 1.0, torch.float32, "cpu")
+    transpose(a)
+    assert (axpby.launches, scale.launches, hadamard.launches,
+            fill.launches, transpose.launches) == before
+
+
+def test_gemm_orient_is_a_view_and_transpose_copies():
+    """op(A) for Gemm and the level-3 updates is a strided view of A's
+    data (K1 and K2 read it in place); level 1's Transpose and Adjoint
+    write a new contiguous matrix, as Hydrogen's Transpose(A, B) does."""
+    import elementalx_torch as Et
+    from elementalx_torch.blas.gemm import _orient
+
+    rng = np.random.default_rng(32)
+    a = rng.standard_normal((6, 4)) + 1j * rng.standard_normal((6, 4))
+    A = Et.DistMatrix.from_global(a, grid=Et.Grid("cpu"))
+    for orient, ref in ((Et.TRANSPOSE, a.T), (Et.ADJOINT, a.conj().T)):
+        V = _orient(A, orient)
+        assert V.data.data_ptr() == A.data.data_ptr()
+        assert (V.m, V.n) == (4, 6)
+        np.testing.assert_array_equal(V.global_array(), ref)
+    for T, ref in ((Et.Transpose(A), a.T), (Et.Adjoint(A), a.conj().T)):
+        assert T.data.data_ptr() != A.data.data_ptr()
+        assert T.data.is_contiguous() and (T.m, T.n) == (4, 6)
+        np.testing.assert_array_equal(T.global_array(), ref)
+    b = rng.standard_normal((6, 3)) + 1j * rng.standard_normal((6, 3))
+    B = Et.DistMatrix.from_global(b, grid=Et.Grid("cpu"))
+    P = Et.Gemm(Et.ADJOINT, Et.NORMAL, 1.0, A, B)
+    np.testing.assert_allclose(P.global_array(), a.conj().T @ b,
+                               rtol=1e-13)
+
+
+# ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -1142,3 +1270,132 @@ def test_herk_and_symv_on_card_launch_k2_k7(cuda):
                      (Y, Et.Symv(Et.LOWER, 2.0, Cc, Xc))):
         err = (out.data.cpu() - ref.data).abs().max().item()
         assert err <= 1e-5 * ref.data.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,dt,strided", [
+    (1000, 777, torch.float32, True), (257, 129, torch.bfloat16, False),
+    (300, 70, torch.float64, True), (1, 5000, torch.float32, False),
+    (5000, 1, torch.float64, True), (0, 7, torch.float32, False)],
+    ids=["ragged-mT", "bf16", "f64-mT", "row", "column", "empty"])
+def test_elementwise_kernels_vs_plain(cuda, m, n, dt, strided):
+    """K9 against its plain versions: the same operations rounded the
+    same way, so every output is equal bit for bit (alpha and beta as
+    Python numbers and as 0-d tensors on the card); each entry launches
+    once (none for an empty array); fill clamps its extent."""
+    g = torch.Generator(device=cuda).manual_seed(33)
+
+    def mk():
+        t = torch.randn((n, m) if strided else (m, n), generator=g,
+                        device=cuda).to(dt)
+        return t.mT if strided else t
+
+    x, y = mk(), mk()
+    alpha = torch.tensor(0.3, device=cuda, dtype=torch.float64)
+    launches = (axpby.launches, scale.launches, hadamard.launches,
+                fill.launches, transpose.launches)
+    pairs = [(axpby(alpha, x, -1.7, y), axpby_plain(alpha, x, -1.7, y)),
+             (scale(-2.5, x), scale_plain(-2.5, x)),
+             (hadamard(x, y), hadamard_plain(x, y)),
+             (fill((m, n), alpha, dt, cuda, extent=(m - 1, n + 5)),
+              fill_plain((m, n), alpha, dt, cuda, extent=(m - 1, n + 5))),
+             (transpose(x), transpose_plain(x)),
+             (transpose(y, conjugate=True), transpose_plain(y, True))]
+    torch.cuda.synchronize()
+    for out, ref in pairs:
+        assert out.dtype == dt and out.is_contiguous()
+        assert torch.equal(out, ref)
+    step = 1 if m * n else 0
+    assert (axpby.launches, scale.launches, hadamard.launches,
+            fill.launches, transpose.launches) == tuple(
+                c + k * step for c, k in zip(launches, (1, 1, 1, 1, 2)))
+
+
+@pytest.mark.cuda
+def test_elementwise_kernels_refuse_complex_and_mixed_types(cuda):
+    z = torch.ones((4, 4), dtype=torch.complex64, device=cuda)
+    f = torch.ones((4, 4), device=cuda)
+    for call in (lambda: axpby(1.0, z, 1.0, z), lambda: scale(2.0, z),
+                 lambda: hadamard(z, z), lambda: transpose(z, True),
+                 lambda: fill((4, 4), 1.0, torch.complex64, cuda)):
+        with pytest.raises(NotImplementedError):
+            call()
+    with pytest.raises(TypeError):
+        axpby(1.0, f.double(), 1.0, f)
+
+
+@pytest.mark.cuda
+def test_gemm_views_and_level1_on_card(cuda):
+    """A transposed Gemm launches K1 on a view (no K9 transpose), its
+    beta C goes through K9's axpby, and Transpose launches K9's
+    transpose; each matches the CPU to 1e-5 of its largest entry."""
+    import elementalx_torch as Et
+
+    g = torch.Generator(device=cuda).manual_seed(34)
+    a = torch.randn((300, 200), generator=g, device=cuda)
+    b = torch.randn((300, 100), generator=g, device=cuda)
+    c = torch.randn((200, 100), generator=g, device=cuda)
+    grid, cpu = Et.Grid(cuda), Et.Grid("cpu")
+    A, B, C = (Et.DistMatrix.from_global(t, grid=grid) for t in (a, b, c))
+    Ac, Bc, Cc = (Et.DistMatrix.from_global(t.cpu(), grid=cpu)
+                  for t in (a, b, c))
+    k1, tr, ax = matmul.launches, transpose.launches, axpby.launches
+    P = Et.Gemm(Et.TRANSPOSE, Et.NORMAL, 2.0, A, B, beta=-1.0, C=C)
+    torch.cuda.synchronize()
+    assert (matmul.launches - k1, transpose.launches - tr,
+            axpby.launches - ax) == (1, 0, 1)
+    ref = Et.Gemm(Et.TRANSPOSE, Et.NORMAL, 2.0, Ac, Bc, beta=-1.0, C=Cc)
+    assert (P.data.cpu() - ref.data).abs().max().item() <= \
+        1e-5 * ref.data.abs().max().item()
+    T = Et.Transpose(A)
+    torch.cuda.synchronize()
+    assert transpose.launches - tr == 1
+    assert torch.equal(T.data.cpu(), a.cpu().mT.contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(900, 600), (400, 700)],
+                         ids=["over", "under"])
+def test_least_squares_on_card(cuda, m, n):
+    """least_squares_step in float64 on the card against the CPU (1e-10
+    of max|X|, and of ||B|| for the residual norm); the overdetermined
+    path launches one K9 axpby (the residual), the underdetermined one
+    also three K9 transposes (LQ's two and LeastSquares' Adjoint of the
+    factor) and one fill."""
+    from elementalx_torch.entry import least_squares_step, make_ls_problem
+
+    a, b = make_ls_problem(m, n, 3, dtype=torch.float64, device=cuda, seed=7)
+    before = (axpby.launches, transpose.launches, fill.launches)
+    x, nrm = least_squares_step(a, b)
+    torch.cuda.synchronize()
+    got = tuple(c - c0 for c, c0 in zip(
+        (axpby.launches, transpose.launches, fill.launches), before))
+    assert got == ((1, 0, 0) if m >= n else (1, 3, 1))
+    xc, nc = least_squares_step(a.cpu(), b.cpu())
+    assert (x.cpu() - xc).abs().max().item() <= 1e-10 * xc.abs().max().item()
+    # the wide system is solved exactly: its residual is rounding-sized
+    assert abs(nrm.item() - nc.item()) <= 1e-10 * b.norm().item()
+
+
+@pytest.mark.cuda
+def test_qr_cholqr_fast_path_on_card(cuda):
+    """QR at 2048 x 1024 float32 with nb=256 on the card takes the
+    CholeskyQR2 panel for every panel at least 4 nb tall (the identity
+    test reads lu_factor_ex's 1-based pivots), and Q is orthogonal and
+    reproduces A to 100 eps n."""
+    import elementalx_torch as Et
+    from elementalx_torch.lapack import qr as tqr
+
+    g = torch.Generator(device=cuda).manual_seed(35)
+    a = torch.randn((2048, 1024), generator=g, device=cuda)
+    tqr.cholqr_panels.update(fast=0, slow=0, short=0)
+    Q, R = Et.ExplicitQR(Et.DistMatrix.from_global(a, grid=Et.Grid(cuda)),
+                         blocksize=256)
+    torch.cuda.synchronize()
+    assert tqr.cholqr_panels == {"fast": 4, "slow": 0, "short": 0}
+    q, r = Q.data.double(), R.data.double()
+    eps, n = torch.finfo(torch.float32).eps, 2048
+    orth = (q.mT @ q - torch.eye(1024, device=cuda, dtype=torch.float64))
+    assert orth.abs().max().item() / (eps * n) < 100
+    recon = (a.double() - q @ r).abs().max() / a.abs().max()
+    assert recon.item() / (eps * n) < 100
