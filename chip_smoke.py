@@ -45,18 +45,20 @@ Phases (each raises on failure, so the script exits non-zero):
      and all three pencils at n=300 in float64 held against the same step
      on the CPU;
  12. K9 (axpby, scale, hadamard, fill, transpose) against its plain
-     versions, bit for bit: 16384^2 float32 (timed in turns against the
-     plain version and the library call), bfloat16, float64, a ragged
-     1000 x 777 case with .mT inputs, and the conjugate transpose of a
-     real input;
+     versions, bit for bit, timed in turns against the plain version and
+     the library call at each float32 shape the paths give it (axpby and
+     fill at 16384 x 256, axpby at 8192 x 256, transpose at 8192 x 16384
+     and 16384 x 8192, every entry at 16384^2, the level-1 block's);
+     checked in bfloat16, float64, a ragged 1000 x 777 case with .mT
+     inputs, and the conjugate transpose of a real input;
  13. the least-squares slice: every public function of lapack/qr.py,
      lq.py, gqr.py and euclidean_min.py at about n=300 in float64 held
      against the same call on the CPU; ``least_squares_step`` at
      m = n = 16384, nrhs = 256 (QR) and at m = 8192, n = 16384 (the
-     minimum-norm LQ solution, three K9 transposes), and ExplicitQR at
-     n = 8192, each run twice, gated on the scaled backward error, the
-     minimum norm, the orthogonality and reconstruction of Q R, the
-     CholeskyQR2 fast panels and the launch counts; then the public
+     minimum-norm solution through the QR of A^H, one K9 transpose), and
+     ExplicitQR at n = 8192, each run twice, gated on the scaled backward
+     error, the minimum norm, the orthogonality and reconstruction of
+     Q R, the CholeskyQR2 fast panels and the launch counts; then the public
      level-1 operations at 16384^2 with their K9 launches.
 Phases 4, 6, 8, 10 and 11 also read K9's launches (the residual Gemm's
 beta C is a K9 axpby) and gate that no K9 transpose runs on their paths.
@@ -1081,11 +1083,18 @@ def main() -> None:
     # ---- 12. K9 against its plain versions ----
     # Every entry rounds as its plain version does (one rounding per
     # product and sum, bfloat16 in float32 with one rounding at the end),
-    # so the outputs must be equal bit for bit; max|err| is printed. The
-    # main-path shapes (16384^2 float32, axpby with beta = 1 as the
-    # residual Gemm runs it) are timed in turns against the plain version
-    # and against one library call: torch.add(y, x, alpha=a) for axpby,
-    # torch.mul, Tensor.fill_ on a preallocated array, x.mT.contiguous().
+    # so the outputs must be equal bit for bit; max|err| is printed. Each
+    # entry is checked and timed at every float32 shape the paths give it,
+    # in turns against its plain version and against one library call:
+    # torch.add(y, x, alpha=a) for axpby with beta = 1, torch.mul,
+    # Tensor.fill_ on a preallocated array, x.mT.contiguous(). The residual
+    # Gemm of the HPD, LU and least-squares (a) steps accumulates into a
+    # 16384 x 256 C (axpby, beta = 1), that of the minimum-norm step (b)
+    # into an 8192 x 256 C; (b) fills a 16384 x 256 array and transposes
+    # its 8192 x 16384 A; LeastSquares(ADJOINT) of a tall A transposes a
+    # 16384 x 8192 one. 16384^2 is the shape of phase 13's level-1 block,
+    # which runs every entry. The bf16, f64 and ragged strided cases are
+    # checked, not timed.
     def k9_calls(x, y, al, be, rows, cols, dt):
         """(name, kernel, plain, library call) for each K9 entry."""
         buf = torch.empty((rows, cols), dtype=dt, device=dev)
@@ -1105,22 +1114,40 @@ def main() -> None:
              lambda: k9.transpose_plain(x),
              lambda: x.mT.contiguous()))
 
+    f32 = torch.float32
+    # (label, rows, cols, type, .mT inputs, entries, betas, timed)
+    k9_cases = (
+        ("16384x256 f32", n, nrhs, f32, False, ("axpby", "fill"), (1.0,),
+         True),
+        ("8192x256 f32", n // 2, nrhs, f32, False, ("axpby",), (1.0,), True),
+        ("8192x16384 f32", n // 2, n, f32, False, ("transpose",), (1.0,),
+         True),
+        ("16384x8192 f32", n, n // 2, f32, False, ("transpose",), (1.0,),
+         True),
+        ("16384^2 f32", n, n, f32, False, k9_entries, (1.0, -1.7), True),
+        ("8192^2 bf16", n // 2, n // 2, torch.bfloat16, False, k9_entries,
+         (-1.7,), False),
+        ("4096^2 f64", n // 4, n // 4, torch.float64, False, k9_entries,
+         (-1.7,), False),
+        ("ragged 1000x777 .mT f32", 1000, 777, f32, True, k9_entries,
+         (-1.7,), False))
+    # the shape of each entry's row in the kernels line: the solver paths'
+    # own where they launch the entry, else the level-1 block's
+    k9_row_shape = {"axpby": "16384x256 f32", "fill": "16384x256 f32",
+                    "transpose": "8192x16384 f32", "scale": "16384^2 f32",
+                    "hadamard": "16384^2 f32"}
     k9_main = {}
-    for label, rows, cols, dt, strided in (
-            ("16384^2 f32", 16384, 16384, torch.float32, False),
-            ("8192^2 bf16", 8192, 8192, torch.bfloat16, False),
-            ("4096^2 f64", 4096, 4096, torch.float64, False),
-            ("ragged 1000x777 .mT f32", 1000, 777, torch.float32, True)):
+    for label, rows, cols, dt, strided, names, betas, timed in k9_cases:
         if strided:
             x = randn(cols, rows, dtype=dt).mT
             y = randn(cols, rows, dtype=dt).mT
         else:
             x, y = randn(rows, cols, dtype=dt), randn(rows, cols, dtype=dt)
-        main = label.startswith("16384")
-        for be in ((1.0, -1.7) if main else (-1.7,)):
+        for be in betas:
             for name, kern, plain, lib in k9_calls(x, y, 0.3, be, rows,
                                                    cols, dt):
-                if name != "axpby" and be != 1.0 and main:
+                if name not in names or (name != "axpby" and be != 1.0
+                                         and len(betas) > 1):
                     continue
                 out, ref = kern(), plain()
                 sync()
@@ -1133,7 +1160,7 @@ def main() -> None:
                         f"K9 {name} {label}: max|kernel - plain| {err}, "
                         "not equal bit for bit")
                 extra = ""
-                if main:
+                if timed:
                     ms, plain_ms = time_pair(kern, plain, 10)
                     lib_ms = time_ms(lib, 10)
                     item = x.element_size()
@@ -1147,7 +1174,7 @@ def main() -> None:
                     extra = (f"  kernel {ms:.4f} ms ({bound[0] / ms:.1%} of "
                              f"the {bound[1]} bound {bound[0]:.4f} ms)  plain "
                              f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms")
-                    if be == 1.0:
+                    if be == 1.0 and k9_row_shape[name] == label:
                         k9_main[name] = (err, ms, plain_ms, lib_ms, bound)
                 print(f"K9 {name} {label}"
                       f"{f' beta={be}' if name == 'axpby' else ''}: "
@@ -1161,6 +1188,8 @@ def main() -> None:
             print(f"K9 transpose conjugate=True {label} (real input): "
                   f"equal to x^T bit for bit")
         del x, y
+    require(set(k9_main) == set(k9_entries),
+            f"K9: no timed row for {set(k9_entries) - set(k9_main)}")
 
     # ---- 13. the least-squares slice ----
     # (d) first: each public function of lapack/qr.py, lq.py, gqr.py and
@@ -1263,7 +1292,8 @@ def main() -> None:
                          "cholqr": dict(qr.cholqr_panels)}
 
     ls_runs = {}
-    for label, m13, n13 in (("(a) QR", n, n), ("(b) LQ", n // 2, n)):
+    for label, m13, n13 in (("(a) QR", n, n),
+                             ("(b) minimum norm", n // 2, n)):
         a, b = make_ls_problem(m13, n13, nrhs, device=dev)
         (x, nrm), first_ms, lc = counted(lambda: least_squares_step(a, b))
         _, again_ms, _ = counted(lambda: least_squares_step(a, b))
@@ -1279,7 +1309,7 @@ def main() -> None:
                 f"LS {label}: the path did not take its kernels: {lc}")
         extra = ""
         if m13 < n13:
-            require(lc["K9"]["transpose"] == 3 and lc["K9"]["fill"] == 1,
+            require(lc["K9"]["transpose"] >= 1 and lc["K9"]["fill"] >= 1,
                     f"LS {label}: K9 launches {lc['K9']}")
             ad = a.double()
             xref = ad.mT @ torch.linalg.solve(ad @ ad.mT, b.double())
@@ -1366,10 +1396,13 @@ def main() -> None:
           f"{l1_ms:.1f} ms together; K9 launches {l1_launches}; each equal "
           f"to its plain result bit for bit")
     del xa, ya, X1, Y1, outs
-    k9_launches = {name: sum(r["K9"][name] for r in ls_runs.values())
+    # each entry's launches on every path that reads K9's counts
+    k9_paths = ([launches, lu_launches, fused_launches, gd_launches]
+                + list(eig_launches.values()) + list(ls_runs.values()))
+    k9_launches = {name: sum(r["K9"][name] for r in k9_paths)
                    + l1_launches[name] for name in k9_entries}
     require(all(v > 0 for v in k9_launches.values()),
-            f"a K9 entry never launched on phase 13's paths: {k9_launches}")
+            f"a K9 entry never launched on the paths: {k9_launches}")
 
     def row(name, source, replaces, launches, main, lib_ms=None):
         err, ms, plain_ms = main[:3]

@@ -30,6 +30,7 @@ from ..core.types import (
     TRANSPOSE,
 )
 from ..kernels.matmul import matmul
+from .level1 import Axpby, Scale, _transposed_view
 
 
 def local_gemm(a: torch.Tensor, b: torch.Tensor,
@@ -48,14 +49,9 @@ def _orient(X: DistMatrix, orientation: Orientation) -> DistMatrix:
     Transpose and Adjoint would write a copy."""
     if orientation == NORMAL:
         return X
-    if orientation == TRANSPOSE:
-        d = X.data.mT
-    elif orientation == ADJOINT:
-        d = X.data.mH
-    else:
+    if orientation not in (TRANSPOSE, ADJOINT):
         raise ValueError(orientation)
-    return DistMatrix.from_padded(d, X.n, X.m, X.row_dist, X.col_dist,
-                                  X.grid, X.wrap)
+    return _transposed_view(X, orientation == ADJOINT)
 
 
 def _accumulate(C: Optional[DistMatrix], prod_dm: DistMatrix, alpha,
@@ -64,8 +60,6 @@ def _accumulate(C: Optional[DistMatrix], prod_dm: DistMatrix, alpha,
     and accumulates: Axpby for beta != 0 and Scale for beta = 0 with
     alpha != 1 (K9 on CUDA tensors), in the product's type, then cast to
     C's type."""
-    from .level1 import Axpby, Scale
-
     if C is None or (isinstance(beta, (int, float)) and beta == 0):
         out = prod_dm
         if not (isinstance(alpha, (int, float)) and alpha == 1):

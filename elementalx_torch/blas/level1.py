@@ -13,9 +13,9 @@ Axpy, Axpby, Add, Subtract, Hadamard, Zero, Fill, Transpose and Adjoint.
 The rest are plain torch.
 
 ``Transpose`` and ``Adjoint`` write a new matrix, as Hydrogen's
-``Transpose(A, B)`` does. Code that only needs op(A) as an operand (Gemm,
-the level-3 updates, Trsm) takes a strided view instead
-(``gemm._orient``), which the kernels read in place.
+``Transpose(A, B)`` does. Code that only reads op(A) (Gemm, the level-3
+updates, Trsm, the row reductions here) takes a strided view instead
+(``_transposed_view``), which the kernels read in place.
 """
 
 from __future__ import annotations
@@ -231,6 +231,14 @@ def Transpose(A: DistMatrix, conjugate: bool = False) -> DistMatrix:
 
 def Adjoint(A: DistMatrix) -> DistMatrix:
     return Transpose(A, conjugate=True)
+
+
+def _transposed_view(A: DistMatrix, conjugate: bool = False) -> DistMatrix:
+    """A^T (or A^H) as a view of A's data (``.mT``/``.mH``) with the dist
+    tags swapped, for callers that only read it; Transpose writes a copy."""
+    d = A.data.mH if conjugate else A.data.mT
+    return DistMatrix.from_padded(d, A.n, A.m, A.row_dist, A.col_dist,
+                                  A.grid, A.wrap)
 
 
 def Swap(A: DistMatrix, B: DistMatrix) -> Tuple[DistMatrix, DistMatrix]:
@@ -482,7 +490,7 @@ def ColumnNorms(A: DistMatrix) -> torch.Tensor:
 
 
 def RowNorms(A: DistMatrix) -> torch.Tensor:
-    return ColumnNorms(Transpose(A))
+    return ColumnNorms(_transposed_view(A))
 
 
 def ColumnMaxNorms(A: DistMatrix) -> torch.Tensor:
@@ -509,7 +517,7 @@ def AxpyTrapezoid(uplo: UpperOrLower, alpha: Scalar, X: DistMatrix,
 def TransposeAxpy(alpha: Scalar, X: DistMatrix, Y: DistMatrix,
                   conjugate: bool = False) -> DistMatrix:
     """Y += alpha X^T (or X^H) (reference: level1/TransposeAxpy.hpp)."""
-    return Axpy(alpha, Transpose(X, conjugate=conjugate), Y)
+    return Axpy(alpha, _transposed_view(X, conjugate), Y)
 
 
 def Concatenate(A: DistMatrix, B: DistMatrix, axis: int = 1) -> DistMatrix:
@@ -709,7 +717,7 @@ def QuasiDiagonalScale(side, uplo: UpperOrLower, d, dSub, X: DistMatrix,
         # quasi-diagonal built from conj(dSub)
         dSub_t = dSub.conj() if conjugated else dSub
         return Transpose(QuasiDiagonalScale(
-            LEFT, uplo, d, dSub_t, Transpose(X), conjugated))
+            LEFT, uplo, d, dSub_t, _transposed_view(X), conjugated))
     x = X.data
     dv, startv, _, b_up, b_dn = _quasi_vectors(d, dSub, x.shape[0],
                                                conjugated, uplo == LOWER)
@@ -732,7 +740,7 @@ def QuasiDiagonalSolve(side, uplo: UpperOrLower, d, dSub, X: DistMatrix,
     if side != LEFT:
         dSub_t = dSub.conj() if conjugated else dSub
         return Transpose(QuasiDiagonalSolve(
-            LEFT, uplo, d, dSub_t, Transpose(X), conjugated))
+            LEFT, uplo, d, dSub_t, _transposed_view(X), conjugated))
     x = X.data
     P = x.shape[0]
     dv, startv, endv, b_up, b_dn = _quasi_vectors(d, dSub, P, conjugated,
@@ -846,7 +854,7 @@ def ColumnMinAbs(A: DistMatrix) -> torch.Tensor:
 
 def RowMinAbs(A: DistMatrix) -> torch.Tensor:
     """Reference: RowMinAbs.cpp."""
-    return ColumnMinAbs(Transpose(A))
+    return ColumnMinAbs(_transposed_view(A))
 
 
 def ColumnMinAbsNonzero(A: DistMatrix) -> torch.Tensor:
@@ -861,7 +869,7 @@ def ColumnMinAbsNonzero(A: DistMatrix) -> torch.Tensor:
 
 
 def RowMinAbsNonzero(A: DistMatrix) -> torch.Tensor:
-    return ColumnMinAbsNonzero(Transpose(A))
+    return ColumnMinAbsNonzero(_transposed_view(A))
 
 
 def ColumnTwoNorms(A: DistMatrix) -> torch.Tensor:

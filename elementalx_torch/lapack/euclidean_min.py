@@ -46,22 +46,22 @@ def LeastSquares(orientation: Orientation, A: DistMatrix, B: DistMatrix
         Rtop = GetSubmatrix(fact.packed, slice(0, n), slice(0, n))
         Btop = GetSubmatrix(QhB, slice(0, n), slice(0, B.n))
         return Trsm(LEFT, UPPER, NORMAL, NON_UNIT, 1.0, Rtop, Btop)
-    # minimum norm: A = L Q, X = Q^H L^{-1} B
-    from .lq import LQ
-    from .qr import ApplyQ, QRFactorization
+    # minimum norm: A = L Q with A^H = Q^H R, so L = R^H and
+    # X = Q^H L^{-1} B = Q_qr (R^H)^{-1} B. The JAX package goes through
+    # LQ(A) and takes the adjoint of its factor back; factoring A^H here
+    # leaves one K9 transpose, and R^H is Trsm's ADJOINT view of R.
+    from .qr import ApplyQ, QR
 
-    fact = LQ(A)
-    Lsq = GetSubmatrix(fact.packed, slice(0, m), slice(0, m))
-    Y = Trsm(LEFT, LOWER, NORMAL, NON_UNIT, 1.0, Lsq, B)
-    # embed Y into n rows (a K9 fill of zeros), then apply Q^H (Q from the
-    # LQ = QR of A^H)
+    fact = QR(Adjoint(A))
+    Rsq = GetSubmatrix(fact.packed, slice(0, m), slice(0, m))
+    Y = Trsm(LEFT, UPPER, ADJOINT, NON_UNIT, 1.0, Rsq, B)
+    # embed Y into n rows (a K9 fill of zeros), then apply Q
     Ydat = Y.redistribute(MC, MR).data
     full = fill((padded_extent(n, A.grid), Ydat.shape[1]), 0.0, Ydat.dtype,
                 Ydat.device)
     full[:m, : Y.n] = Ydat[:m, : Y.n]
     Yfull = DistMatrix.from_padded(full, n, Y.n, MC, MR, A.grid, A.wrap)
-    qr_fact = QRFactorization(Adjoint(fact.packed), fact.tau.conj())
-    return ApplyQ(False, qr_fact, Yfull)
+    return ApplyQ(False, fact, Yfull)
 
 
 def Ridge(orientation: Orientation, A: DistMatrix, B: DistMatrix,

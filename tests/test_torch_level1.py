@@ -236,6 +236,58 @@ def test_minabs_and_norm_vectors(grid):
     assert T1.RealToComplex(A).dtype == torch.complex128
 
 
+_D = np.array([3.0, 2.5, 4.0, 3.5, 2.0])
+_DSUB = np.array([0.5, 0.0, -0.8, 0.0])
+_VIEW_READERS = {
+    # name: (op on (A, Y), the same through Transpose's copy, copies made)
+    "RowNorms": (lambda A, Y: T1.RowNorms(A),
+                 lambda A, Y: T1.ColumnNorms(T1.Transpose(A)), 0),
+    "RowMinAbs": (lambda A, Y: T1.RowMinAbs(A),
+                  lambda A, Y: T1.ColumnMinAbs(T1.Transpose(A)), 0),
+    "RowMinAbsNonzero": (
+        lambda A, Y: T1.RowMinAbsNonzero(A),
+        lambda A, Y: T1.ColumnMinAbsNonzero(T1.Transpose(A)), 0),
+    "TransposeAxpy": (lambda A, Y: T1.TransposeAxpy(0.5, A, Y),
+                      lambda A, Y: T1.Axpy(0.5, T1.Transpose(A), Y), 0),
+    "AdjointAxpy": (lambda A, Y: T1.AdjointAxpy(0.5, A, Y),
+                    lambda A, Y: T1.Axpy(0.5, T1.Adjoint(A), Y), 0),
+    # the RIGHT side writes its result with one transpose
+    "QuasiDiagonalScale RIGHT": (
+        lambda A, Y: T1.QuasiDiagonalScale(RIGHT, LOWER, _D, _DSUB, Y),
+        lambda A, Y: T1.Transpose(T1.QuasiDiagonalScale(
+            LEFT, LOWER, _D, _DSUB, T1.Transpose(Y))), 1),
+    "QuasiDiagonalSolve RIGHT": (
+        lambda A, Y: T1.QuasiDiagonalSolve(RIGHT, LOWER, _D, _DSUB, Y),
+        lambda A, Y: T1.Transpose(T1.QuasiDiagonalSolve(
+            LEFT, LOWER, _D, _DSUB, T1.Transpose(Y))), 1),
+}
+
+
+@pytest.mark.parametrize("name", list(_VIEW_READERS))
+def test_transpose_readers_take_a_view(rng, monkeypatch, name):
+    """The row reductions, Transpose/AdjointAxpy and the RIGHT quasi-diagonal
+    operations read A^T through a view: they call K9's transpose (a copy of
+    the whole matrix on the card) only for a result they return, and give
+    what the route through Transpose's copy gives, exactly."""
+    op, through_copy, copies = _VIEW_READERS[name]
+    calls, transpose = [], T1.transpose
+
+    def counted(x, conjugate=False):
+        calls.append(tuple(x.shape))
+        return transpose(x, conjugate)
+
+    monkeypatch.setattr(T1, "transpose", counted)
+    a = rng.standard_normal((6, 5))
+    a[1, 3] = 0.0
+    A = Et.DistMatrix.from_global(a, grid=CPU)
+    Y = Et.DistMatrix.from_global(rng.standard_normal((5, 6)), grid=CPU)
+    want = through_copy(A, Y)
+    calls.clear()
+    got = op(A, Y)
+    assert len(calls) == copies
+    assert np.array_equal(_np(got), _np(want))
+
+
 def test_loc_reduction_family(rng, grid):
     """MaxLoc/MinLoc/MinAbsLoc + Symmetric/Vector variants against the
     JAX package (reference: MaxLoc.cpp / MinAbsLoc.hpp semantics)."""

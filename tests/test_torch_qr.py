@@ -369,6 +369,32 @@ def test_least_squares_underdetermined(grid, rng):
     assert _rel(X, jem.LeastSquares(El.NORMAL, Aj, Bj)) < 1e-12
 
 
+@pytest.mark.parametrize("complex_", [False, True], ids=["real", "cplx"])
+def test_least_squares_underdetermined_transposes_once(grid, rng, monkeypatch,
+                                                       complex_):
+    """The minimum-norm branch factors A^H by QR and solves with R^H as a
+    view: one K9 transpose (of A), where the route through LQ(A) takes
+    three. Same X as the JAX package's route through LQ (1e-12)."""
+    from elementalx_torch.blas import level1 as T1
+
+    calls, transpose = [], T1.transpose
+
+    def counted(x, conjugate=False):
+        calls.append(tuple(x.shape))
+        return transpose(x, conjugate)
+
+    monkeypatch.setattr(T1, "transpose", counted)
+    m, n = 8, 20
+    a, b = rng.standard_normal((m, n)), rng.standard_normal((m, 3))
+    if complex_:
+        a = a + 1j * rng.standard_normal((m, n))
+        b = b + 1j * rng.standard_normal((m, 3))
+    (Aj, At), (Bj, Bt) = _both(a, grid), _both(b, grid)
+    X = tem.LeastSquares(Et.NORMAL, At, Bt)
+    assert calls == [tuple(At.data.shape)]
+    assert _rel(X, jem.LeastSquares(El.NORMAL, Aj, Bj)) < 1e-12
+
+
 @pytest.mark.parametrize("shape", [(30, 10), (8, 20)], ids=["over", "under"])
 def test_least_squares_adjoint(grid, rng, shape):
     """op(A) = A^H: the solve of the conjugate-transposed system, against
