@@ -1,6 +1,7 @@
 """Drive the port's main paths (HPD solve, LU solve, HermitianEig, the
 BLAS levels 2 and 3, the fused Cholesky panel tail, HermitianGenDefEig,
-level 1 and least squares) on one NVIDIA GPU and check them.
+level 1, least squares and the distributed GEMM) on one NVIDIA GPU and
+check them.
 
 Usage, from the root of the repository: ``python3 chip_smoke.py``
 
@@ -60,6 +61,17 @@ Phases (each raises on failure, so the script exits non-zero):
      error, the minimum norm, the orthogonality and reconstruction of
      Q R, the CholeskyQR2 fast panels and the launch counts; then the public
      level-1 operations at 16384^2 with their K9 launches.
+ 14. the distributed GEMM slice on virtual grids (every position on the
+     one card): K8 (ring SUMMA) at M = K = N = 16384 on a 2x2 grid in
+     float32 and bfloat16 against its plain version, timed against it, its
+     bound and the library call, and at a ragged float64 size on a 4x2
+     grid; ``dist_gemm_step`` at n=16384 float32 on the 2x2 grid, gated
+     on the residual against the same step on a 1 x 1 grid and on its
+     K1/K8/K9 launches, with the bytes each redistribution moved and a
+     profile; SUMMA A/B/C/Dot, Cannon and Gemm3D(depth=2) at n=16384
+     against K1 on the gathered operands; every ordered pair of
+     redistributions at 1000 x 777 bit for bit; and the step at n=300 in
+     float64 on the 2x2 and 4x2 grids against CPU grids of the same shape.
 Phases 4, 6, 8, 10 and 11 also read K9's launches (the residual Gemm's
 beta C is a K9 axpby) and gate that no K9 transpose runs on their paths.
 The line before the last is a JSON summary of the kernels, each with its
@@ -105,13 +117,16 @@ def main() -> None:
         fail("no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import elementalx_torch as Et
+    from elementalx_torch.core import collectives
     from elementalx_torch.entry import (
+        dist_gemm_step,
         entry,
         gen_def_eig_step,
         hermitian_eig_step,
         hpd_solve_step,
         least_squares_step,
         linear_solve_step,
+        make_dist_problem,
         make_eig_problem,
         make_gendef_problem,
         make_hpd_problem,
@@ -130,6 +145,10 @@ def main() -> None:
         potrf_panel_tail_full,
         potrf_panel_tail_full_plain,
         potrf_panel_tail_plain,
+    )
+    from elementalx_torch.kernels.ring_summa import (
+        ring_summa_kernel,
+        ring_summa_plain,
     )
     from elementalx_torch.kernels.sb2tr import sb2tr, sb2tr_plain
     from elementalx_torch.kernels.symv import (
@@ -1396,8 +1415,209 @@ def main() -> None:
           f"{l1_ms:.1f} ms together; K9 launches {l1_launches}; each equal "
           f"to its plain result bit for bit")
     del xa, ya, X1, Y1, outs
+    # ---- 14. the distributed GEMM slice on virtual grids ----
+    # Every position of these grids lies on cuda:0: a virtual grid, the
+    # counterpart of the JAX package's virtual CPU mesh. The copies between
+    # positions stay inside the card's HBM, so no time here says anything
+    # of NVLink or of K8 across cards.
+    print("phase 14: grids of several positions, every one on cuda:0 (a "
+          "virtual grid); these times are on one card: the copies between "
+          "positions stay inside its HBM and say nothing of NVLink")
+    g22 = Et.Grid([dev] * 4, height=2)
+    g42 = Et.Grid([dev] * 8, height=4)
+
+    def ring_blocks(a_, b_, grid_):
+        """A and B as [VC,*] blocks on ``grid_``: K8's operands."""
+        return tuple([x.contiguous() for x in Et.Copy(
+            Et.DistMatrix.from_global(t_, grid=grid_), Et.VC, Et.STAR).blocks]
+            for t_ in (a_, b_))
+
+    def blocks_err(out, ref):
+        """(max|out - ref|, max|ref|) over lists of blocks, in float64."""
+        return (max((o.double() - r.double()).abs().max().item()
+                    for o, r in zip(out, ref)),
+                max(r.double().abs().max().item() for r in ref))
+
+    # K8 at the full width: M = K = N = 16384 on the 2x2 grid (p = 4, kb =
+    # 4096), against its plain version on the same [VC,*] blocks.
+    # Tolerance: max|C - C_plain| <= rtol * max|C_plain|. float32: both sum
+    # 16384 FP32 terms, the kernel one after the other and cuBLAS in
+    # blocks, so 2e-5 (the sequential sum's rounding error grows with K;
+    # phase 2's 1e-5 is for K up to 7680); bfloat16 output: the two f32
+    # accumulators may round to neighbouring bf16 values, 2^-7 relative
+    # to the largest entry, so 1e-2. Timed with CUDA events in turns
+    # against the plain version, and against the library yardstick: one
+    # torch.matmul(A_r, B gathered) for each rank r.
+    nk = 16384
+    k8_main = None
+    for dt, rtol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
+        av, bv = ring_blocks(randn(nk, nk, dtype=dt), randn(nk, nk, dtype=dt),
+                             g22)
+        err, scale = blocks_err(ring_summa_kernel(av, bv),
+                                ring_summa_plain(av, bv))
+        require(err <= rtol * scale,
+                f"K8 {nk}^3 {dt}: max_abs_err {err} > {rtol} * {scale}")
+        ms, plain_ms = time_pair(lambda: ring_summa_kernel(av, bv),
+                                 lambda: ring_summa_plain(av, bv), 2)
+        b_all = torch.cat(bv)
+        lib_ms = time_ms(lambda: [torch.matmul(x, b_all) for x in av], 2)
+        bound = roofline(2 * nk ** 3, av[0].element_size() * 3 * nk * nk)
+        tc = ("" if dt == torch.float32 else
+              f"; {2 * nk ** 3 / 989e12 * 1e3:.4f} ms at the bf16 tensor-core "
+              "peak, which this FMA kernel does not use")
+        print(f"K8 ring SUMMA {nk}^3 {str(dt)[6:]} on the 2x2 grid (p=4, "
+              f"kb={nk // 4}): max_abs_err {err:.3e} (tol {rtol} x "
+              f"{scale:.3e})  kernel {ms:.4f} ms "
+              f"({2 * nk ** 3 / ms / 1e9:.2f} TFLOP/s, {bound[0] / ms:.1%} of "
+              f"the {bound[1]} bound {bound[0]:.4f} ms{tc})  plain "
+              f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms")
+        if k8_main is None:
+            k8_main = (err, ms, plain_ms, lib_ms, bound)
+        del av, bv, b_all
+    # ragged, float64, on the 4x2 grid (p = 8): float64 sums, 1e-12
+    av, bv = ring_blocks(randn(1000, 777, dtype=torch.float64),
+                         randn(777, 1001, dtype=torch.float64), g42)
+    err, scale = blocks_err(ring_summa_kernel(av, bv),
+                            ring_summa_plain(av, bv))
+    require(err <= 1e-12 * scale,
+            f"K8 ragged 1000x777x1001 f64 4x2: {err} > 1e-12 * {scale}")
+    print(f"K8 ring SUMMA ragged (1000x777)x(777x1001) f64 on the 4x2 grid "
+          f"(blocks {tuple(av[0].shape)} x {tuple(bv[0].shape)}): "
+          f"max_abs_err {err:.3e} (tol 1e-12 x {scale:.3e})")
+    del av, bv
+
+    # The slice: dist_gemm_step at n = 16384, float32, on the 2x2 grid,
+    # against the same step on a 1 x 1 grid of the card. x solves a x = b
+    # (through the HPD solve), so R = B - A X is rounding noise whose
+    # entries depend on the order of the sums: the grids must agree on
+    # its size, ||R3|| within a factor 2. ||A G|| is no noise: within 1e-5
+    # (FP32 sums in another order).
+    nd = 16384
+    a, b, x, gm = make_dist_problem(nd, g22, torch.float32, seed=0)
+    ref_r3, ref_cr, _ = dist_gemm_step(a, b, x, gm, Et.Grid(dev))
+    sync()
+    matmul.launches = ring_summa_kernel.launches = 0
+    k9_reset()
+    collectives.reset()
+    t0 = time.perf_counter()
+    nr3, ncr, r3_blocks = dist_gemm_step(a, b, x, gm, g22)
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    dist_launches = {"K1": matmul.launches, "K8": ring_summa_kernel.launches,
+                     "K9": k9_counts()}
+    dist_moved = dict(collectives.moved)
+    t0 = time.perf_counter()
+    dist_gemm_step(a, b, x, gm, g22)
+    sync()
+    again_ms = (time.perf_counter() - t0) * 1e3
+    require(len(r3_blocks) == 4 and all(
+        tuple(t_.shape) == (nd // 2, 2) and bool(torch.isfinite(t_).all())
+        for t_ in r3_blocks), "dist step: R3's blocks misshapen or not finite")
+    ratio = nr3.item() / ref_r3.item()
+    require(0.5 <= ratio <= 2.0,
+            f"dist step: ||R3|| {nr3.item()} on 2x2 against {ref_r3.item()} "
+            "on 1 x 1")
+    cr_rel = abs(ncr.item() - ref_cr.item()) / ref_cr.item()
+    require(cr_rel <= 1e-5, f"dist step: ||A G|| differs by {cr_rel}")
+    require(dist_launches["K1"] > 0 and dist_launches["K8"] == 1
+            and dist_launches["K9"]["axpby"] == 4,
+            f"dist step: the path did not launch its kernels: {dist_launches}")
+    wall, by_name, count = device_profile(
+        lambda: dist_gemm_step(a, b, x, gm, g22))
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    print(f"slice dist_gemm_step n={nd} nrhs=4 f32 on the 2x2 grid: "
+          f"{first_ms:.1f} ms (first run), {again_ms:.1f} ms (second run); "
+          f"||R3|| {nr3.item():.4e} (1 x 1: {ref_r3.item():.4e}, ratio "
+          f"{ratio:.4f}); ||A G|| {ncr.item():.6e} (1 x 1: rel diff "
+          f"{cr_rel:.3e}); launches {dist_launches}; bytes moved "
+          f"{sum(dist_moved.values())}: {dist_moved}")
+    print(f"dist step profile: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"(idle {100 * (1 - busy / wall):.1f}%), {count} device kernels; "
+          + "; ".join(f"{k[:40]} {v:.1f} ms ({100 * v / wall:.1f}%)"
+                      for k, v in top))
+    del a, b, x, gm, r3_blocks
+
+    # Each explicit algorithm once at n = 16384 f32 on the 2x2 grid,
+    # against K1 on the gathered operands, block by block: 2e-5 of
+    # max|C| (FP32 sums over 16384 terms in another split).
+    a, b = randn(nd, nd), randn(nd, nd)
+    A14 = Et.DistMatrix.from_global(a, grid=g22)
+    B14 = Et.DistMatrix.from_global(b, grid=g22)
+    c_ref = matmul(a, b)
+    del a, b
+
+    def gemm(alg):
+        return lambda: Et.Gemm(Et.NORMAL, Et.NORMAL, 1.0, A14, B14, alg=alg)
+
+    for name, fn in (("GEMM_SUMMA_A", gemm(Et.GEMM_SUMMA_A)),
+                     ("GEMM_SUMMA_B", gemm(Et.GEMM_SUMMA_B)),
+                     ("GEMM_SUMMA_C", gemm(Et.GEMM_SUMMA_C)),
+                     ("GEMM_SUMMA_DOT", gemm(Et.GEMM_SUMMA_DOT)),
+                     ("GEMM_CANNON", gemm(Et.GEMM_CANNON)),
+                     ("Gemm3D depth=2", lambda: Et.Gemm3D(A14, B14, depth=2))):
+        sync()
+        matmul.launches = 0
+        collectives.reset()
+        t0 = time.perf_counter()
+        C14 = fn()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        err, scale = blocks_err(C14.blocks, [
+            c_ref[r0:r1, c0:c1] for (r0, r1), (c0, c1) in C14.block_ranges()])
+        require(C14.dist == (Et.MC, Et.MR) and err <= 2e-5 * scale,
+                f"{name} n={nd}: max_abs_err {err} > 2e-5 * {scale}")
+        require(matmul.launches > 0, f"{name}: no K1 launch")
+        print(f"{name} n={nd} f32 on the 2x2 grid: {ms:.1f} ms, max_abs_err "
+              f"{err:.3e} (tol 2e-5 x {scale:.3e}) against K1 on the gathered "
+              f"operands; K1 launches {matmul.launches}; bytes moved "
+              f"{collectives.bytes_moved()}")
+        del C14
+    del A14, B14, c_ref
+
+    # The redistribution sweep: every ordered pair of ALL_DISTS at 1000 x
+    # 777 f32 on the 2x2 grid; the target's global array equals the source
+    # bit for bit, and each of its blocks is the one the target layout cuts.
+    src = randn(1000, 777)
+    want = {d: Et.DistMatrix.from_global(src, *d, grid=g22).blocks
+            for d in Et.ALL_DISTS}
+    for d1 in Et.ALL_DISTS:
+        A14 = Et.DistMatrix.from_global(src, *d1, grid=g22)
+        for d2 in Et.ALL_DISTS:
+            B14 = A14.redistribute(*d2)
+            require(torch.equal(B14.replicated()[:1000, :777], src)
+                    and all(torch.equal(x_, w_) for x_, w_
+                            in zip(B14.blocks, want[d2])),
+                    f"redistribution {A14.dist_name()} -> "
+                    f"{B14.dist_name()}: not bit for bit")
+    print(f"redistributions: all {len(Et.ALL_DISTS) ** 2} ordered pairs of "
+          f"the {len(Et.ALL_DISTS)} distributions at 1000x777 f32 on the 2x2 "
+          "grid equal the source bit for bit, block by block")
+    del src, want, A14, B14
+
+    # A small float64 check: dist_gemm_step at n = 300 on the 2x2 and 4x2
+    # grids against the same step on a CPU grid of the same shape (plain
+    # versions). x is moved off a's solution so that R is no rounding
+    # noise and the entries compare: within 1e-10 of max|R3|.
+    for grid_ in (g22, g42):
+        a, b, x, gm = make_dist_problem(300, grid_, torch.float64,
+                                        seed=5)
+        x = x + 1e-3 * randn(*x.shape, dtype=torch.float64)
+        card = dist_gemm_step(a, b, x, gm, grid_)
+        cpu_grid_ = Et.Grid(["cpu"] * grid_.size, height=grid_.height)
+        host = dist_gemm_step(a.cpu(), b.cpu(), x.cpu(), gm.cpu(), cpu_grid_)
+        err, scale = blocks_err([t_.cpu() for t_ in card[2]], host[2])
+        norms = max(abs(card[i].item() - host[i].item()) / host[i].item()
+                    for i in (0, 1))
+        require(err <= 1e-10 * scale and norms <= 1e-10,
+                f"dist step n=300 f64 {grid_}: card and CPU differ by {err} "
+                f"(of {scale}), norms by {norms}")
+        print(f"slice dist_gemm_step n=300 f64 on {grid_}: card vs CPU grid "
+              f"max|dR3| {err:.3e} of {scale:.3e}, norms within {norms:.3e}")
+
     # each entry's launches on every path that reads K9's counts
-    k9_paths = ([launches, lu_launches, fused_launches, gd_launches]
+    k9_paths = ([launches, lu_launches, fused_launches, gd_launches,
+                 dist_launches]
                 + list(eig_launches.values()) + list(ls_runs.values()))
     k9_launches = {name: sum(r["K9"][name] for r in k9_paths)
                    + l1_launches[name] for name in k9_entries}
@@ -1417,7 +1637,8 @@ def main() -> None:
         row("K1 local GEMM (matmul)", csrc + "matmul.cu",
             "elementalx/kernels/matmul.py:39",
             launches["K1"] + lu_launches["K1"] + eig_launches["latrd"]["K1"]
-            + eig_launches["sbr"]["K1"], k1_main, k1_main[3]),
+            + eig_launches["sbr"]["K1"] + dist_launches["K1"], k1_main,
+            k1_main[3]),
         row("K2 masked rank-k update (masked_rank_k)", csrc + "trrk.cu",
             "elementalx/kernels/trrk.py:45", blas_launches["K2"], k2_main),
         row("K3a Cholesky diagonal block (potrf_block_inv)",
@@ -1441,6 +1662,9 @@ def main() -> None:
         row("K7 lower-triangle symv (symv_lower)", csrc + "symv.cu",
             "elementalx/kernels/symv.py:66", blas_launches["K7"], k7_main,
             k7_main[3]),
+        row("K8 ring SUMMA (ring_summa_kernel)", csrc + "ring_summa.cu",
+            "elementalx/kernels/ring_summa.py:93", dist_launches["K8"],
+            k8_main, k8_main[3]),
     ] + [
         row(f"K9 {name}", csrc + "elementwise.cu",
             f"elementalx/kernels/elementwise.py:{line}", k9_launches[name],

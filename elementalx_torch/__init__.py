@@ -1,4 +1,4 @@
-"""elementalx_torch — elementalx ported to PyTorch on one NVIDIA H100.
+"""elementalx_torch — elementalx ported to PyTorch on the NVIDIA H100.
 
 The port of the JAX package ``elementalx`` (the reference, which stays in
 the repository unchanged). Plain tensor code is PyTorch; every kernel the
@@ -17,6 +17,13 @@ HermitianGenDefEig, and QR/LQ/RQ/GQR/GRQ with the least-squares family
 reference's El:: is: every public blas/lapack entry point is lifted to the
 package root. The top-level SolveAfter is the Cholesky one, and the LU
 one is ``lapack.lu.SolveAfter``.
+
+The distributed GEMM slice: a Grid of r x c positions, each on a
+torch.device (several positions may share one: a virtual grid), a
+DistMatrix sharded over it as the JAX NamedSharding cuts it, the
+collectives between positions and every redistribution (``copy``), the
+SUMMA A/B/C/Dot, Cannon and 3-D Gemm, and the ring SUMMA on K8. Other
+operations raise NotImplementedError on a grid of several positions.
 """
 
 __version__ = "0.1.0"
@@ -34,13 +41,16 @@ if not _os.environ.get("ELEMENTALX_NO_PRECISION_OVERRIDE"):
     _torch.backends.cudnn.allow_tf32 = False
 
 from .core import *  # noqa: F401,F403,E402
+from .core import redistribute as copy  # noqa: F401,E402  (copy::)
 from . import blas, kernels, lapack  # noqa: F401,E402
+from .kernels.ring_summa import ring_summa  # noqa: F401,E402
 from .blas import (  # noqa: F401,E402
     Adjoint,
     ApplyGivensSequence,
     DiagonalSolve,
     FillDiagonal,
     Gemm,
+    Gemm3D,
     Gemv,
     Ger,
     Geru,
@@ -77,6 +87,7 @@ from .blas import (  # noqa: F401,E402
     Trtrmm,
     TwoSidedTrmm,
     TwoSidedTrsm,
+    use_explicit_summa,
 )
 from .lapack import (  # noqa: F401,E402
     GLM,

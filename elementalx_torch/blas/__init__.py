@@ -1,6 +1,6 @@
 """BLAS-like operations: Gemm, Trsm, levels 1, 2 and 3."""
 
-from .gemm import Gemm, local_gemm  # noqa: F401
+from .gemm import Gemm, Gemm3D, local_gemm, use_explicit_summa  # noqa: F401
 from . import level1  # noqa: F401
 from .level1 import *  # noqa: F401,F403
 from .level2 import (  # noqa: F401

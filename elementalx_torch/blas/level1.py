@@ -12,6 +12,11 @@ a CUDA tensor and takes its plain version on the CPU: Scale, SafeScale,
 Axpy, Axpby, Add, Subtract, Hadamard, Zero, Fill, Transpose and Adjoint.
 The rest are plain torch.
 
+On a grid of several positions (a sharded DistMatrix) only what the
+distributed GEMM needs has a distributed form: Scale and Axpby act per
+position, Nrm2 reduces over positions. The rest read the global tensor
+and raise NotImplementedError there (ROADMAP queue 1 item 11).
+
 ``Transpose`` and ``Adjoint`` write a new matrix, as Hydrogen's
 ``Transpose(A, B)`` does. Code that only reads op(A) (Gemm, the level-3
 updates, Trsm, the row reductions here) takes a strided view instead
@@ -20,11 +25,13 @@ updates, Trsm, the row reductions here) takes a strided view instead
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..core import collectives
 from ..core.dmatrix import DistMatrix, check_same_grid, pad_array
 from ..core.types import (
     ADJOINT,
@@ -180,7 +187,10 @@ def ImagPart(A: DistMatrix) -> DistMatrix:
 
 
 def Scale(alpha: Scalar, A: DistMatrix) -> DistMatrix:
-    """Reference: Scale.hpp (K9's scale)."""
+    """Reference: Scale.hpp (K9's scale; on a grid of several positions
+    one launch per position)."""
+    if A.sharded:
+        return A.with_blocks(scale(alpha, b) for b in A.blocks)
     return _like(A, scale(alpha, A.data))
 
 
@@ -203,7 +213,16 @@ def Axpy(alpha: Scalar, X: DistMatrix, Y: DistMatrix) -> DistMatrix:
 
 def Axpby(alpha: Scalar, X: DistMatrix, beta: Scalar,
           Y: DistMatrix) -> DistMatrix:
-    """beta*Y + alpha*X (K9's axpby)."""
+    """beta*Y + alpha*X (K9's axpby; on a grid of several positions X is
+    first brought to Y's distribution, then one launch per position)."""
+    if Y.sharded:
+        check_same_grid(Y, X)
+        if Y.shape != X.shape:
+            raise ValueError(f"shape mismatch {Y.shape} vs {X.shape}")
+        Xb = X.redistribute(*Y.dist).blocks
+        dt = torch.promote_types(Y.dtype, X.dtype)
+        return Y.with_blocks(axpby(alpha, x.to(dt), beta, y.to(dt))
+                             for x, y in zip(Xb, Y.blocks))
     return _binary(Y, X, lambda y, x: axpby(alpha, x, beta, y))
 
 
@@ -235,7 +254,13 @@ def Adjoint(A: DistMatrix) -> DistMatrix:
 
 def _transposed_view(A: DistMatrix, conjugate: bool = False) -> DistMatrix:
     """A^T (or A^H) as a view of A's data (``.mT``/``.mH``) with the dist
-    tags swapped, for callers that only read it; Transpose writes a copy."""
+    tags swapped, for callers that only read it; Transpose writes a copy.
+    On a grid of several positions each block is viewed so: the block a
+    position holds of [U,V] A is the one it holds of [V,U] A^T."""
+    if A.sharded:
+        return dataclasses.replace(
+            A, m=A.n, n=A.m, col_dist=A.row_dist, row_dist=A.col_dist,
+            blocks=tuple(b.mH if conjugate else b.mT for b in A.blocks))
     d = A.data.mH if conjugate else A.data.mT
     return DistMatrix.from_padded(d, A.n, A.m, A.row_dist, A.col_dist,
                                   A.grid, A.wrap)
@@ -423,16 +448,40 @@ def Dotu(A: DistMatrix, B: DistMatrix) -> torch.Tensor:
     return torch.sum(A.data * Bd)
 
 
+def _scaled_squares(d: torch.Tensor):
+    """(scale, ss) with scale = max|d| and ss = sum((|d| / scale)^2)
+    (scale 1 where d is 0)."""
+    absa = torch.abs(d)
+    scale_ = torch.max(absa)
+    return scale_, torch.sum((absa / _safe(scale_)) ** 2)
+
+
+def _safe(scale_: torch.Tensor) -> torch.Tensor:
+    return torch.where(scale_ == 0, torch.ones_like(scale_), scale_)
+
+
 def Nrm2(A: DistMatrix) -> torch.Tensor:
     """Frobenius/2-norm via scaled squares for overflow safety
-    (reference: Nrm2.hpp, NormsFromScaledSquares.hpp)."""
-    absa = torch.abs(A.data)
-    scale_ = torch.max(absa)
-    one = torch.ones((), dtype=scale_.dtype, device=scale_.device)
-    safe = torch.where(scale_ == 0, one, scale_)
-    ss = torch.sum((absa / safe) ** 2)
+    (reference: Nrm2.hpp, NormsFromScaledSquares.hpp). On a grid of
+    several positions: each distinct block's own scaled squares, then one
+    reduction over positions (an all-gather of the (scale, ss) pairs),
+    combined at position (0, 0); the result lies on its device."""
+    if not A.sharded:
+        scale_, ss = _scaled_squares(A.data)
+    else:
+        ranges = A.block_ranges()
+        pairs = []
+        for q, b in enumerate(A.blocks):
+            s_, ss = _scaled_squares(b)
+            if ranges.index(ranges[q]) != q:   # a replica: counted once
+                s_, ss = torch.zeros_like(s_), torch.zeros_like(ss)
+            pairs.append(torch.stack([s_, ss]).view(1, 2))
+        allp = collectives.all_gather(pairs, A.grid, "vc", 0)[0]
+        scales, sss = allp[:, 0], allp[:, 1]
+        scale_ = torch.max(scales)
+        ss = torch.sum(sss * (scales / _safe(scale_)) ** 2)
     return torch.where(scale_ == 0, torch.zeros_like(scale_),
-                       safe * torch.sqrt(ss))
+                       _safe(scale_) * torch.sqrt(ss))
 
 
 def MaxAbs(A: DistMatrix) -> torch.Tensor:

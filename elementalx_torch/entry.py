@@ -17,6 +17,14 @@ Gemm. ``least_squares_step`` is LeastSquares (QR for m >= n, the
 minimum-norm LQ solution for m < n; BASELINE config 3's QR run as a
 solve), the residual B - A X through Gemm (its beta C through level 1,
 K9) and its norm, on a problem from ``make_ls_problem``.
+``dist_gemm_step`` is the GEMM part of the JAX multi-device dry run
+(``__graft_entry__.py:100-115``, ``:205-212``) on a grid of several
+positions: the residual chain through SUMMA A, B and C and the ring SUMMA
+(K8), on a problem from ``make_dist_problem``.
+
+Every entry point runs on the card unless the caller asks for the CPU
+(a CPU tensor, ``device="cpu"`` or a CPU grid): without one the default
+grid raises.
 """
 
 from __future__ import annotations
@@ -29,7 +37,15 @@ import torch
 from .blas import Gemm, Nrm2
 from .core.dmatrix import DistMatrix
 from .core.grid import Grid
-from .core.types import LOWER, NORMAL
+from .core.types import (
+    GEMM_DEFAULT,
+    GEMM_SUMMA_A,
+    GEMM_SUMMA_B,
+    GEMM_SUMMA_C,
+    LOWER,
+    NORMAL,
+)
+from .kernels.ring_summa import ring_summa
 from .lapack import (
     HermitianEig,
     HermitianGenDefEig,
@@ -201,6 +217,46 @@ def least_squares_step(a: torch.Tensor, b: torch.Tensor,
     X = LeastSquares(NORMAL, A, B)
     R = Gemm(NORMAL, NORMAL, -1.0, A, X, beta=1.0, C=B)
     return X.data, Nrm2(R)
+
+
+def make_dist_problem(n: int, grid: Grid, dtype: torch.dtype = torch.float32,
+                      seed: int = 0, nrhs: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """(a, b, x, g) for ``dist_gemm_step`` on the device of the grid's
+    position (0, 0), as the JAX dry run builds them: a and b from
+    ``make_hpd_problem`` (nrhs = the grid's size unless given), x = a \\ b
+    through the port's HPD solve on that device (the distributed Cholesky
+    is not ported yet), g standard normal n x n from ``seed + 1``."""
+    dev = grid.device
+    a, b = make_hpd_problem(n, grid.size if nrhs is None else nrhs, dtype,
+                            dev, seed)
+    x, _ = hpd_solve_step(a, b, Grid(dev))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    g = torch.randn((n, n), generator=gen, device=dev).to(dtype)
+    return a, b, x, g
+
+
+def dist_gemm_step(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                   g: torch.Tensor, grid: Grid
+                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                              Tuple[torch.Tensor, ...]]:
+    """The GEMM part of the JAX dry run on ``grid``: R = B - A X through
+    GEMM_SUMMA_A, R2 = A R through GEMM_SUMMA_B, R3 = A R2 through
+    GEMM_SUMMA_C, and Cr = A G through the ring SUMMA (K8). Returns
+    (Nrm2(R3), Nrm2(Cr), R3's [MC,MR] blocks). On a 1 x 1 grid each
+    product is the one local product (the explicit algorithms need
+    several positions), so the same step there is the reference."""
+    def alg(a_):
+        return a_ if grid.size > 1 else GEMM_DEFAULT
+
+    A, B, X, G = (DistMatrix.from_global(t, grid=grid) for t in (a, b, x, g))
+    R = Gemm(NORMAL, NORMAL, -1.0, A, X, beta=1.0, C=B, alg=alg(GEMM_SUMMA_A))
+    R2 = Gemm(NORMAL, NORMAL, 1.0, A, R, alg=alg(GEMM_SUMMA_B))
+    R3 = Gemm(NORMAL, NORMAL, 1.0, A, R2, alg=alg(GEMM_SUMMA_C))
+    Cr = ring_summa(A, G)
+    blocks = R3.blocks if R3.sharded else (R3.data,)
+    return Nrm2(R3), Nrm2(Cr), blocks
 
 
 def entry(n: int = 256, nrhs: int = 16, dtype: torch.dtype = torch.float32,

@@ -29,6 +29,7 @@ from .potrf import (  # noqa: F401
     potrf_panel_tail_full_plain,
     potrf_panel_tail_plain,
 )
+from .ring_summa import ring_summa_kernel, ring_summa_plain  # noqa: F401
 from .sb2tr import sb2tr, sb2tr_plain  # noqa: F401
 from .symv import (  # noqa: F401
     symv_lower,

@@ -130,10 +130,12 @@ __device__ __forceinline__ int tile_col(int j) {
 // count as zero). A and B point at this batch entry's operands; g gives
 // M, N, K and the strides. kRoundBF16 rounds every operand to bfloat16
 // (nearest even) as it is loaded, so the FMAs multiply bfloat16 values and
-// sum in the accumulator type. Block-uniform: every thread of the block
-// must call it. On return the shared memory is free for reuse.
+// sum in the accumulator type. kAccumulate adds the product to acc instead
+// of overwriting it (a k-loop split over several operand pairs, as K8's
+// ring walks its holders). Block-uniform: every thread of the block must
+// call it. On return the shared memory is free for reuse.
 template <typename TIn, typename Acc, bool kRoundBF16 = false,
-          bool kL2Only = false>
+          bool kL2Only = false, bool kAccumulate = false>
 __device__ __forceinline__ void tile_product(
     const GemmArgs& g, const TIn* A, const TIn* B, int m0, int n0,
     TileSmem<Acc>& sm, Acc (&acc)[Tile<Acc>::TM][Tile<Acc>::TN]) {
@@ -195,10 +197,12 @@ __device__ __forceinline__ void tile_product(
     }
   };
 
+  if constexpr (!kAccumulate) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
+      for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
+  }
 
   const int nk = (g.K + BK - 1) / BK;
   if (nk > 0) {

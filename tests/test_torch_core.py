@@ -28,6 +28,16 @@ def _few_torch_threads():
     torch.set_num_threads(prev)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default_grid():
+    """The port runs on the card unless the caller asks for the CPU: these
+    tests ask, by making a CPU grid the default for the module."""
+    prev = Et.Grid._default
+    Et.Grid.set_default(Et.Grid("cpu"))
+    yield
+    Et.Grid.set_default(prev)
+
+
 @pytest.fixture(scope="module")
 def cpu_grid():
     return Et.Grid("cpu")

@@ -1,7 +1,8 @@
 """Port parity: the kernels K1 (local GEMM), K2 (masked rank-k update),
 K3a (Cholesky diagonal block), K3b/K3c (fused panel tail), K4 (pivoted LU
-panel), K5 (latrd panel), K6 (bulge chase), K7 (lower-triangle symv) and
-K9 (the level-1 elementwise kernels and the tiled transpose).
+panel), K5 (latrd panel), K6 (bulge chase), K7 (lower-triangle symv), K8
+(the ring SUMMA; its CPU parity is in test_torch_summa.py) and K9 (the
+level-1 elementwise kernels and the tiled transpose).
 
 On the CPU each wrapper takes its plain PyTorch version; those are held
 against the JAX package's Pallas kernels run in interpret mode, as the JAX
@@ -1398,3 +1399,73 @@ def test_qr_cholqr_fast_path_on_card(cuda):
     assert orth.abs().max().item() / (eps * n) < 100
     recon = (a.double() - q @ r).abs().max() / a.abs().max()
     assert recon.item() / (eps * n) < 100
+
+
+# ---------------------------------------------------------------------------
+# K8 on the card: the ring SUMMA on virtual grids (every position on the
+# one card), against its plain version on the same [VC,*] blocks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("height,p", [(2, 4), (4, 8)], ids=["2x2", "4x2"])
+@pytest.mark.parametrize("dt,rtol", [(torch.float32, 1e-5),
+                                     (torch.bfloat16, 1e-2),
+                                     (torch.float64, 1e-12)],
+                         ids=["f32", "bf16", "f64"])
+@pytest.mark.parametrize("shape", [(1000, 777, 1001), (130, 67, 257)])
+def test_ring_summa_kernel_vs_plain(cuda, height, p, dt, rtol, shape):
+    """Tolerances, of the largest entry: FP32 sums in another order 1e-5;
+    float64 1e-12; bf16 outputs one bf16 step (1e-2). One launch covers
+    every rank of the virtual grid."""
+    import elementalx_torch as Et
+    from elementalx_torch.core.redistribute import Copy
+    from elementalx_torch.core.types import STAR, VC
+    from elementalx_torch.kernels.ring_summa import (
+        ring_summa,
+        ring_summa_kernel,
+        ring_summa_plain,
+    )
+
+    m, k, n = shape
+    grid = Et.Grid([cuda] * p, height=height)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    a = torch.randn((m, k), generator=g, device=cuda).to(dt)
+    b = torch.randn((k, n), generator=g, device=cuda).to(dt)
+    A = Et.DistMatrix.from_global(a, grid=grid)
+    B = Et.DistMatrix.from_global(b, grid=grid)
+    av = [x.contiguous() for x in Copy(A, VC, STAR).blocks]
+    bv = [x.contiguous() for x in Copy(B, VC, STAR).blocks]
+    before = ring_summa_kernel.launches
+    out = ring_summa_kernel(av, bv)
+    ref = ring_summa_plain(av, bv)
+    torch.cuda.synchronize()
+    assert ring_summa_kernel.launches == before + 1
+    scale = max(r.double().abs().max().item() for r in ref)
+    for o, r in zip(out, ref):
+        assert o.dtype == dt and o.shape == r.shape
+        assert (o.double() - r.double()).abs().max().item() <= rtol * scale
+    C = ring_summa(A, B)
+    torch.cuda.synchronize()
+    assert ring_summa_kernel.launches == before + 2
+    want = a.double() @ b.double()
+    got = torch.tensor(C.global_array(), dtype=torch.float64)
+    assert (got - want.cpu()).abs().max().item() <= \
+        rtol * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_ring_summa_kernel_refusals(cuda):
+    from elementalx_torch.kernels.ring_summa import ring_summa_kernel
+
+    a = [torch.ones((4, 8), device=cuda) for _ in range(2)]
+    b = [torch.ones((4, 4), device=cuda) for _ in range(2)]
+    with pytest.raises(NotImplementedError):
+        ring_summa_kernel([x.to(torch.complex64) for x in a],
+                          [x.to(torch.complex64) for x in b])
+    with pytest.raises(ValueError, match="contiguous"):
+        ring_summa_kernel([torch.ones((8, 4), device=cuda).mT] * 2, b)
+    with pytest.raises(TypeError):
+        ring_summa_kernel(a, [x.double() for x in b])
+    with pytest.raises(ValueError):
+        ring_summa_kernel(a, b[:1])
