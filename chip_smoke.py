@@ -65,11 +65,13 @@ Phases (each raises on failure, so the script exits non-zero):
      one card): K8 (ring SUMMA) at M = K = N = 16384 on a 2x2 grid in
      float32 and bfloat16 against its plain version, timed against it, its
      bound and the library call, and at a ragged float64 size on a 4x2
-     grid; ``dist_gemm_step`` at n=16384 float32 on the 2x2 grid, gated
-     on the residual against the same step on a 1 x 1 grid and on its
-     K1/K8/K9 launches, with the bytes each redistribution moved and a
-     profile; SUMMA A/B/C/Dot, Cannon and Gemm3D(depth=2) at n=16384
-     against K1 on the gathered operands; every ordered pair of
+     grid; ``dist_gemm_step`` at n=16384 float32 on the 2x2 grid with x
+     moved off the solution, gated on R3 entry by entry against a float64
+     chain in plain torch, on the norms against the same step on a 1 x 1
+     grid and on its K1/K8/K9 launches, with the bytes each
+     redistribution moved and a profile; SUMMA A/B/C/Dot, Cannon and
+     Gemm3D(depth=2) at n=16384 against K1 on the gathered operands; a
+     Gemm on 2x3 and 3x2 grids against a float64 product; every ordered pair of
      redistributions at 1000 x 777 bit for bit; and the step at n=300 in
      float64 on the 2x2 and 4x2 grids against CPU grids of the same shape.
 Phases 4, 6, 8, 10 and 11 also read K9's launches (the residual Gemm's
@@ -1486,14 +1488,20 @@ def main() -> None:
           f"max_abs_err {err:.3e} (tol 1e-12 x {scale:.3e})")
     del av, bv
 
-    # The slice: dist_gemm_step at n = 16384, float32, on the 2x2 grid,
-    # against the same step on a 1 x 1 grid of the card. x solves a x = b
-    # (through the HPD solve), so R = B - A X is rounding noise whose
-    # entries depend on the order of the sums: the grids must agree on
-    # its size, ||R3|| within a factor 2. ||A G|| is no noise: within 1e-5
-    # (FP32 sums in another order).
+    # The slice: dist_gemm_step at n = 16384, float32, on the 2x2 grid.
+    # x solves a x = b (through the HPD solve), so R = B - A X would be
+    # rounding noise; x is moved off the solution by a standard normal
+    # step, so that R is of the size of B and each product of the chain
+    # (SUMMA_A's (16384x16384)(16384x4), SUMMA_B's and SUMMA_C's skinny
+    # K1 products) shows in R3. R3's blocks are held entry by entry
+    # against a float64 chain in plain torch on the card (B - A X, A R,
+    # A R2, cut into the same blocks): within 1e-5 of max|R3| (FP32 sums
+    # over 16384 terms; a dropped k-panel moves R3 by a quarter of it).
+    # ||R3|| and ||A G|| against the same step on a 1 x 1 grid: within
+    # 1e-5 (FP32 sums in another order).
     nd = 16384
     a, b, x, gm = make_dist_problem(nd, g22, torch.float32, seed=0)
+    x = x + randn(*x.shape)
     ref_r3, ref_cr, _ = dist_gemm_step(a, b, x, gm, Et.Grid(dev))
     sync()
     matmul.launches = ring_summa_kernel.launches = 0
@@ -1513,8 +1521,18 @@ def main() -> None:
     require(len(r3_blocks) == 4 and all(
         tuple(t_.shape) == (nd // 2, 2) and bool(torch.isfinite(t_).all())
         for t_ in r3_blocks), "dist step: R3's blocks misshapen or not finite")
-    ratio = nr3.item() / ref_r3.item()
-    require(0.5 <= ratio <= 2.0,
+    a64 = a.double()
+    r64 = b.double() - a64 @ x.double()
+    r64 = a64 @ (a64 @ r64)
+    del a64
+    r3_err, r3_scale = blocks_err(
+        r3_blocks, Et.DistMatrix.from_global(r64, grid=g22).blocks)
+    del r64
+    require(r3_err <= 1e-5 * r3_scale,
+            f"dist step: R3 against the float64 chain: max_abs_err {r3_err} "
+            f"> 1e-5 * {r3_scale}")
+    r3_rel = abs(nr3.item() - ref_r3.item()) / ref_r3.item()
+    require(r3_rel <= 1e-5,
             f"dist step: ||R3|| {nr3.item()} on 2x2 against {ref_r3.item()} "
             "on 1 x 1")
     cr_rel = abs(ncr.item() - ref_cr.item()) / ref_cr.item()
@@ -1528,8 +1546,9 @@ def main() -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     print(f"slice dist_gemm_step n={nd} nrhs=4 f32 on the 2x2 grid: "
           f"{first_ms:.1f} ms (first run), {again_ms:.1f} ms (second run); "
-          f"||R3|| {nr3.item():.4e} (1 x 1: {ref_r3.item():.4e}, ratio "
-          f"{ratio:.4f}); ||A G|| {ncr.item():.6e} (1 x 1: rel diff "
+          f"R3 max_abs_err {r3_err:.3e} against the float64 chain (tol "
+          f"1e-5 x {r3_scale:.3e}); ||R3|| {nr3.item():.6e} (1 x 1: rel "
+          f"diff {r3_rel:.3e}); ||A G|| {ncr.item():.6e} (1 x 1: rel diff "
           f"{cr_rel:.3e}); launches {dist_launches}; bytes moved "
           f"{sum(dist_moved.values())}: {dist_moved}")
     print(f"dist step profile: wall {wall:.1f} ms, device busy {busy:.1f} ms "
@@ -1574,6 +1593,24 @@ def main() -> None:
               f"{collectives.bytes_moved()}")
         del C14
     del A14, B14, c_ref
+
+    # SUMMA_C on 2x3 and 3x2 grids (p = 6), where K//c and K//r are 2t and
+    # 3t and a panel must divide their gcd: 3000x2400 times 2400x1800 f32
+    # against the float64 product in plain torch, within 1e-5 of max|C|.
+    a, b = randn(3000, 2400), randn(2400, 1800)
+    c64 = a.double() @ b.double()
+    for h in (2, 3):
+        g6 = Et.Grid([dev] * 6, height=h)
+        C6 = Et.Gemm(Et.NORMAL, Et.NORMAL, 1.0,
+                     Et.DistMatrix.from_global(a, grid=g6),
+                     Et.DistMatrix.from_global(b, grid=g6),
+                     alg=Et.GEMM_SUMMA_C)
+        err, scale = blocks_err([C6.replicated()[:3000, :1800]], [c64])
+        require(err <= 1e-5 * scale,
+                f"GEMM_SUMMA_C on {g6}: max_abs_err {err} > 1e-5 * {scale}")
+        print(f"GEMM_SUMMA_C 3000x2400x1800 f32 on {g6}: max_abs_err "
+              f"{err:.3e} (tol 1e-5 x {scale:.3e}) against float64")
+    del a, b, c64, C6
 
     # The redistribution sweep: every ordered pair of ALL_DISTS at 1000 x
     # 777 f32 on the 2x2 grid; the target's global array equals the source

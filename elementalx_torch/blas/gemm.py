@@ -34,6 +34,7 @@ level 1 (K9 on CUDA tensors, one launch per position).
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 import torch
@@ -142,8 +143,11 @@ def _summa_c(A: DistMatrix, B: DistMatrix,
     r, c = g.height, g.width
     K = A.padded_shape[1]
     # a panel must live within a single owner row/column block, so nb must
-    # divide both K//c and K//r (pick a divisor near the request)
-    kmax = min(K // c, K // r)
+    # divide both K//c and K//r (pick a divisor near the request). K is a
+    # multiple of p = r c, so their gcd is (K // p) gcd(r, c); the JAX
+    # package takes their min, which on a 2x3 grid lets a panel cross B's
+    # owner block (its dynamic_slice clamps silently).
+    kmax = math.gcd(K // c, K // r)
     nb = min(blocksize, kmax)
     while kmax % nb != 0:
         nb -= 1
@@ -222,10 +226,15 @@ def _cannon(A: DistMatrix, B: DistMatrix) -> List[torch.Tensor]:
 
 def use_explicit_summa(on: bool = True) -> None:
     """The JAX package's switch between GSPMD and the aspect-ratio SUMMA
-    heuristic (reference: Gemm/NN.hpp:910-931), kept for API parity. It
-    changes nothing here: the port has no GSPMD path, so on a grid of
-    several positions GEMM_DEFAULT always takes the heuristic, and on a
-    1 x 1 grid the one local product."""
+    heuristic (reference: Gemm/NN.hpp:910-931). The port has no GSPMD
+    path: on a grid of several positions GEMM_DEFAULT always takes the
+    heuristic, which is what ``on=True`` asks for, so that call changes
+    nothing; ``on=False`` asks for the partitioner and raises ValueError,
+    as GEMM_XLA does."""
+    if not on:
+        raise ValueError("use_explicit_summa(False) hands GEMM_DEFAULT to "
+                         "XLA's SPMD partitioner, which the port does not "
+                         "have; GEMM_DEFAULT always takes the aspect rule")
 
 
 def _choose_algorithm(m: int, n: int, k: int, p: int) -> GemmAlgorithm:

@@ -119,6 +119,29 @@ def test_gemm_associativity(tsquare, alg):
     assert _rel(Y1.global_array(), Y2.global_array()) < 1e-12
 
 
+@pytest.mark.parametrize("alg, blocksize",
+                         [(a, None) for a in ALGS + ["GEMM_DEFAULT"]]
+                         + [("GEMM_SUMMA_C", 4)])
+@pytest.mark.parametrize("height", [2, 3], ids=["2x3", "3x2"])
+def test_gemm_alg_on_a_grid_whose_sides_do_not_divide(height, alg,
+                                                      blocksize):
+    """On a 2x3 or 3x2 grid (p = 6, which default_grid_height gives) K//c
+    and K//r are 2t and 3t (K = 60, t = 10): SUMMA_C's panel must divide
+    their gcd t (nb = 10, or 2 for a blocksize of 4), or it crosses B's
+    (or A's) owner block. Held against numpy in float64: the JAX
+    package's SUMMA_C takes min(K//c, K//r) there and its dynamic_slice
+    clamps silently, so it is no reference on these grids."""
+    rng = np.random.default_rng(46)
+    m, k, n = 35, 60, 22
+    a, b, c = (rng.standard_normal(s) for s in ((m, k), (k, n), (m, n)))
+    g = Et.Grid(["cpu"] * 6, height=height)
+    TA, TB, TC = (Et.DistMatrix.from_global(x, grid=g) for x in (a, b, c))
+    out = Et.Gemm(T.NORMAL, T.NORMAL, 2.0, TA, TB, beta=0.5, C=TC,
+                  alg=getattr(T, alg), blocksize=blocksize)
+    assert out.sharded and out.dist == (T.MC, T.MR)
+    assert _rel(out.global_array(), 2 * a @ b + 0.5 * c) < 1e-12
+
+
 def test_gemm_summa_c_blocked(grid, tgrid):
     """Reference: tests/blas/test_gemm.py:106-114: a small blocksize runs
     the k-loop (nb = 8 divides K/c and K/r); and nb = 5 falls to 4."""
@@ -171,10 +194,10 @@ def test_gemm_default_aspect_heuristic(grid, tgrid):
                 jgemm._choose_algorithm(m, n, k, p).name
     finally:
         jgemm.use_explicit_summa(False)
-    for flag in (False, True):
-        Et.use_explicit_summa(flag)
-        assert tgemm._choose_algorithm(8, 8, 1024, p) == T.GEMM_SUMMA_DOT
-    Et.use_explicit_summa(False)
+    Et.use_explicit_summa(True)
+    assert tgemm._choose_algorithm(8, 8, 1024, p) == T.GEMM_SUMMA_DOT
+    with pytest.raises(ValueError, match="partitioner"):
+        Et.use_explicit_summa(False)
     assert tgemm._choose_algorithm(8, 8, 1024, 1) == T.GEMM_XLA
     rng = np.random.default_rng(45)
     for m, k, n in ((8, 64, 8), (8, 24, 64), (64, 24, 8), (24, 24, 24)):
