@@ -7,7 +7,12 @@ Usage, from the root of the repository: ``python3 chip_smoke.py``
 
 Phases (each raises on failure, so the script exits non-zero):
   1. set-up: the card, torch and CUDA versions, the kernel build time;
-  2. K1 (local GEMM) against its plain version at the main path's shapes;
+  2. K1 (local GEMM) against its plain version at the main path's shapes,
+     each case on the core ``route`` gives it: float32 on the FP32 FMA core
+     fed by cp.async, bfloat16 on the tensor cores (the Cholesky history
+     product with B a .mH view into float32, and 16384^3), misaligned
+     operands on the FMA core; each timed against ``torch.matmul`` in the
+     operands' type and its bound at the right peak;
   3. K3a (Cholesky diagonal block) against its plain version, and the NaN
      poisoning of a block that is not positive definite;
   4. the slice: ``elementalx_torch.entry`` at n=16384, nrhs=256, float32,
@@ -37,7 +42,9 @@ Phases (each raises on failure, so the script exits non-zero):
  10. the fused-tail HPD slice: ``entry()`` at n=16384 under
      ``ELX_PALLAS_POTRF=1`` (set for the phase only), gated on the scaled
      residual and 32 K3b launches; a bfloat16-storage Cholesky at n=16384
-     through the fused tail beside the default path; and the public Herk,
+     through the fused tail beside the default path, gated on every
+     history product taking K1's tensor cores and none its FMA core, with
+     its time; and the public Herk,
      Trrk and Symv at phase 9's shapes, with their K2/K7 launch counts;
  11. the HermitianGenDefEig slice: ``gen_def_eig_step`` at n=8192,
      float32, AXBX, with the fused tail, gated on the scaled residual,
@@ -63,9 +70,10 @@ Phases (each raises on failure, so the script exits non-zero):
      level-1 operations at 16384^2 with their K9 launches.
  14. the distributed GEMM slice on virtual grids (every position on the
      one card): K8 (ring SUMMA) at M = K = N = 16384 on a 2x2 grid in
-     float32 and bfloat16 against its plain version, timed against it, its
-     bound and the library call, and at a ragged float64 size on a 4x2
-     grid; ``dist_gemm_step`` at n=16384 float32 on the 2x2 grid with x
+     float32 (FP32 FMA core fed by cp.async) and bfloat16 (tensor cores),
+     once through its DistMatrix entry ``ring_summa`` with the launches by
+     core, then against its plain version, timed against it, its bound and
+     the library call, and at a ragged float64 size on a 4x2 grid; ``dist_gemm_step`` at n=16384 float32 on the 2x2 grid with x
      moved off the solution, gated on R3 entry by entry against a float64
      chain in plain torch, on the norms against the same step on a 1 x 1
      grid and on its K1/K8/K9 launches, with the bytes each
@@ -76,9 +84,11 @@ Phases (each raises on failure, so the script exits non-zero):
      float64 on the 2x2 and 4x2 grids against CPU grids of the same shape.
 Phases 4, 6, 8, 10 and 11 also read K9's launches (the residual Gemm's
 beta C is a K9 axpby) and gate that no K9 transpose runs on their paths.
-The line before the last is a JSON summary of the kernels, each with its
-bound (the larger of its bytes over 3.35 TB/s and its FP32 operations
-over 67 TFLOP/s, the H100 SXM's published peaks); the last line is
+The line before the last is a JSON summary of the kernels (K1 and K8 one
+row per core that the main paths launched), each with its bound (the
+larger of its bytes over 3.35 TB/s and its operations over the peak of the
+units it runs on: 67 TFLOP/s FP32, 989 TFLOP/s dense bf16 on the tensor
+cores, the H100 SXM's published peaks); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
 repository, it fails and prints no result.
 """
@@ -101,14 +111,16 @@ def require(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-#: H100 SXM published peaks: FP32 outside the tensor cores, HBM3
-PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+#: H100 SXM published peaks: FP32 outside the tensor cores, dense bf16 on
+#: the tensor cores, HBM3
+PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 
 
-def roofline(flops: float, nbytes: float):
+def roofline(flops: float, nbytes: float, peak: float = PEAK_FP32):
     """(ms, "operations" or "bytes"): the least time the card could take
-    for ``flops`` FP32 operations and ``nbytes`` of memory traffic."""
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    for ``flops`` operations at ``peak`` (FP32 FMA unless the kernel runs
+    on the bf16 tensor cores) and ``nbytes`` of memory traffic."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -139,7 +151,10 @@ def main() -> None:
     from elementalx_torch.kernels import elementwise as k9
     from elementalx_torch.kernels.getrf import getrf_panel, getrf_panel_plain
     from elementalx_torch.kernels.latrd import latrd_panel, latrd_panel_plain
+    from elementalx_torch.kernels.matmul import CORES as K1_CORES
     from elementalx_torch.kernels.matmul import matmul, matmul_plain
+    from elementalx_torch.kernels.matmul import reset_launches as k1_reset
+    from elementalx_torch.kernels.matmul import route as k1_route
     from elementalx_torch.kernels.potrf import (
         potrf_block_inv,
         potrf_block_inv_plain,
@@ -148,7 +163,11 @@ def main() -> None:
         potrf_panel_tail_full_plain,
         potrf_panel_tail_plain,
     )
+    from elementalx_torch.kernels.ring_summa import CORES as K8_CORES
+    from elementalx_torch.kernels.ring_summa import reset_launches as k8_reset
+    from elementalx_torch.kernels.ring_summa import route as k8_route
     from elementalx_torch.kernels.ring_summa import (
+        ring_summa,
         ring_summa_kernel,
         ring_summa_plain,
     )
@@ -236,44 +255,83 @@ def main() -> None:
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     # ---- 2. K1 against torch.matmul (f32 accumulation) ----
+    # Each case names the core route() gives it (float32: "fma_async" where
+    # the operands can be read in 16-byte pieces, else "fma"; bfloat16:
+    # "wgmma", or "fma" for a misaligned operand) and must launch it.
     # Tolerance: max|C - C_plain| <= rtol * max|C_plain|. float32: both
     # are FP32 FMA sums of K terms in possibly different orders, so 1e-5
     # (about 100 eps) covers K up to 16384; bfloat16 output: the two f32
     # accumulators may round to neighbouring bf16 values, 2^-7 apart
-    # relative to the largest entry, so 1e-2.
+    # relative to the largest entry, so 1e-2; bfloat16 into float32: exact
+    # products of bf16 values summed in f32 in another order (the tensor
+    # cores' blocks against cuBLAS's), 1e-4 at K <= 16384.
+    # The history case as the Cholesky gives it: rows of an n x n buffer
+    # times the .mH view of the panel's rows.
+    def k1_counts():
+        return {core: getattr(matmul, f"launches_{core}")
+                for core in K1_CORES}
+
+    def history(dt):
+        buf = randn(16384, 16384, dtype=dt)
+        return buf[8192:, :7680], buf[8192:8704, :7680].mH
+
     k1_cases = [
-        ("history f32", 8192, 7680, 512, torch.float32, False, 1e-5),
-        ("L21 f32", 15872, 512, 512, torch.float32, False, 1e-5),
-        ("bench bf16", 16384, 16384, 16384, torch.bfloat16, False, 1e-2),
-        ("ragged f32", 1000, 777, 1001, torch.float32, False, 1e-5),
-        ("ragged transposed f32", 1000, 777, 1001, torch.float32, True,
-         1e-5),
+        # (name, operands, out_dtype, core, rtol, bound peak)
+        ("history f32", lambda: (randn(8192, 7680), randn(7680, 512)),
+         None, "fma_async", 1e-5, PEAK_FP32),
+        ("L21 f32", lambda: (randn(15872, 512), randn(512, 512)), None,
+         "fma_async", 1e-5, PEAK_FP32),
+        ("history bf16 -> f32, B = row.mH", lambda: history(torch.bfloat16),
+         torch.float32, "wgmma", 1e-4, PEAK_BF16),
+        ("bench bf16", lambda: (randn(16384, 16384, dtype=torch.bfloat16),
+                                randn(16384, 16384, dtype=torch.bfloat16)),
+         None, "wgmma", 1e-2, PEAK_BF16),
+        ("ragged f32", lambda: (randn(1000, 777), randn(777, 1001)), None,
+         "fma", 1e-5, PEAK_FP32),
+        ("ragged transposed f32",
+         lambda: (randn(777, 1000).mT, randn(1001, 777).mT), None, "fma",
+         1e-5, PEAK_FP32),
+        ("misaligned bf16 (rows of 258 bytes)",
+         lambda: (randn(257, 129, dtype=torch.bfloat16),
+                  randn(129, 65, dtype=torch.bfloat16)), None, "fma", 1e-2,
+         PEAK_FP32),
     ]
-    k1_main = None
-    for name, M, K, N, dt, transposed, rtol in k1_cases:
-        if transposed:
-            a, b = randn(K, M, dtype=dt).mT, randn(N, K, dtype=dt).mT
-        else:
-            a, b = randn(M, K, dtype=dt), randn(K, N, dtype=dt)
-        c, ref = matmul(a, b), matmul_plain(a, b)
+    k1_main = {}
+    for name, make, out_dt, core, rtol, peak in k1_cases:
+        a, b = make()
+        M, K = a.shape
+        N = b.shape[1]
+        require(k1_route(a, b) == core,
+                f"K1 {name}: route {k1_route(a, b)}, not {core}")
+        k1_reset()
+        c = matmul(a, b, out_dtype=out_dt)
+        require(k1_counts()[core] == 1 and matmul.launches == 1,
+                f"K1 {name}: launches {k1_counts()}, not one on {core}")
+        ref = matmul_plain(a, b, out_dtype=out_dt)
         sync()
         err = (c.double() - ref.double()).abs().max().item()
         scale = ref.double().abs().max().item()
         require(err <= rtol * scale,
                 f"K1 {name}: max_abs_err {err} > {rtol} * {scale}")
         iters = 2 if M * N * K > 1e12 else 10
-        ms, plain_ms = time_pair(lambda: matmul(a, b),
-                                 lambda: matmul_plain(a, b), iters)
+        ms, plain_ms = time_pair(lambda: matmul(a, b, out_dtype=out_dt),
+                                 lambda: matmul_plain(a, b, out_dtype=out_dt),
+                                 iters)
         tf = 2 * M * N * K / ms / 1e9
-        print(f"K1 {name} ({M}x{K})x({K}x{N}): max_abs_err {err:.3e} "
-              f"(tol {rtol} x {scale:.3e})  kernel {ms:.4f} ms "
-              f"({tf:.2f} TFLOP/s)  plain {plain_ms:.4f} ms")
-        if k1_main is None:
-            lib_ms = time_ms(lambda: torch.matmul(a, b), iters)
-            k1_main = (err, ms, plain_ms, lib_ms,
-                       roofline(2 * M * N * K, 4 * (M * K + K * N + M * N)))
+        # the library call: torch.matmul in the operands' type (cuBLAS; on
+        # the tensor cores for bf16)
+        lib_ms = time_ms(lambda: torch.matmul(a, b), iters)
+        nbytes = (a.element_size() * (M * K + K * N)
+                  + c.element_size() * M * N)
+        bound = roofline(2 * M * N * K, nbytes, peak)
+        print(f"K1 {name} ({M}x{K})x({K}x{N}) on {core}: max_abs_err "
+              f"{err:.3e} (tol {rtol} x {scale:.3e})  kernel {ms:.4f} ms "
+              f"({tf:.2f} TFLOP/s, {bound[0] / ms:.1%} of the {bound[1]} "
+              f"bound {bound[0]:.4f} ms)  plain {plain_ms:.4f} ms  "
+              f"torch.matmul {lib_ms:.4f} ms (kernel / library "
+              f"{ms / lib_ms:.3f})")
+        k1_main.setdefault(core, (err, ms, plain_ms, lib_ms, bound))
         del a, b, c, ref
-
     # ---- 3. K3a against torch.linalg.cholesky_ex + triangular inverse ----
     # Tolerance: max|out - plain| <= 1e-5 * max|plain| in float32; the
     # blocks are g g^T / w + 2 I (condition number below 3), so both
@@ -322,14 +380,15 @@ def main() -> None:
     n, nrhs = 16384, 256
     step, (a, b) = entry(n=n, nrhs=nrhs, dtype=torch.float32, device=dev)
     sync()
-    matmul.launches = 0
+    k1_reset()
     potrf_block_inv.launches = 0
     k9_reset()
     t0 = time.perf_counter()
     x, nrm = step(a, b)
     sync()
     first_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"K1": matmul.launches, "K3a": potrf_block_inv.launches,
+    launches = {"K1": matmul.launches, "K1 cores": k1_counts(),
+                "K3a": potrf_block_inv.launches,
                 "K9": k9_counts()}
     t0 = time.perf_counter()
     step(a, b)
@@ -410,14 +469,15 @@ def main() -> None:
 
     a, b = make_lu_problem(n, nrhs, dtype=torch.float32, device=dev)
     sync()
-    matmul.launches = 0
+    k1_reset()
     getrf_panel.launches = 0
     k9_reset()
     t0 = time.perf_counter()
     x, nrm = linear_solve_step(a, b)
     sync()
     first_ms = (time.perf_counter() - t0) * 1e3
-    lu_launches = {"K1": matmul.launches, "K4": getrf_panel.launches,
+    lu_launches = {"K1": matmul.launches, "K1 cores": k1_counts(),
+                   "K4": getrf_panel.launches,
                    "K9": k9_counts()}
     t0 = time.perf_counter()
     linear_solve_step(a, b)
@@ -614,13 +674,14 @@ def main() -> None:
     for alg in ("latrd", "sbr"):
         ctrl = HermitianEigCtrl(tridiag_alg=alg)
         sync()
-        matmul.launches = latrd_panel.launches = sb2tr.launches = 0
+        k1_reset()
+        latrd_panel.launches = sb2tr.launches = 0
         k9_reset()
         t0 = time.perf_counter()
         w, q, r = hermitian_eig_step(h, ctrl)
         sync()
         first_ms = (time.perf_counter() - t0) * 1e3
-        eig_launches[alg] = {"K1": matmul.launches,
+        eig_launches[alg] = {"K1": matmul.launches, "K1 cores": k1_counts(),
                              "K5": latrd_panel.launches,
                              "K6": sb2tr.launches, "K9": k9_counts()}
         t0 = time.perf_counter()
@@ -869,14 +930,15 @@ def main() -> None:
     try:
         step, (a, b) = entry(n=n, nrhs=nrhs, dtype=torch.float32, device=dev)
         sync()
-        matmul.launches = potrf_block_inv.launches = 0
+        k1_reset()
+        potrf_block_inv.launches = 0
         potrf_panel_tail.launches = 0
         k9_reset()
         t0 = time.perf_counter()
         x, nrm = step(a, b)
         sync()
         first_ms = (time.perf_counter() - t0) * 1e3
-        fused_launches = {"K1": matmul.launches,
+        fused_launches = {"K1": matmul.launches, "K1 cores": k1_counts(),
                           "K3a": potrf_block_inv.launches,
                           "K3b": potrf_panel_tail.launches,
                           "K9": k9_counts()}
@@ -912,34 +974,49 @@ def main() -> None:
         del x, b
 
         # bfloat16 storage: the fused tail with low_apply beside the
-        # default (K3a) path; max|A - L L^T| / max|A| < 5e-2 for the fused
+        # default (K3a) path; max|A - L L^T| / max|A| < 5e-2 for the fused.
+        # Every history product (bf16 operands, f32 result: two a panel
+        # from the third, one for the second) must take K1's tensor-core
+        # core: none on the FMA core; the default path's L21 products are
+        # float32 (the pipelined FMA core), the fused path has none.
         a16 = a.bfloat16()
         A16 = Et.DistMatrix.from_global(a16, grid=Et.Grid(dev))
         ab = a16.float()
-        errs16 = {}
+        from elementalx_torch.core.environment import Blocksize
+        nb16 = max(Blocksize(), 512)
+        hist_products = sum(1 + (k0 > nb16) for k0 in range(nb16, n, nb16))
+        errs16, chol16 = {}, {}
         for label, fuse in (("fused tail", True), ("default", False)):
             if fuse:
                 os.environ["ELX_PALLAS_POTRF"] = "1"
             else:
                 os.environ.pop("ELX_PALLAS_POTRF", None)
             potrf_panel_tail.launches = potrf_block_inv.launches = 0
+            k1_reset()
             sync()
             t0 = time.perf_counter()
             L16 = Et.Cholesky(Et.LOWER, A16)
             sync()
             t16 = (time.perf_counter() - t0) * 1e3
+            cores = k1_counts()
+            chol16[label] = cores
             Lf = L16.data.float()
             errs16[label] = ((Lf @ Lf.mT - ab).abs().max()
                              / ab.abs().max()).item()
+            require(cores["wgmma"] == hist_products and cores["fma"] == 0
+                    and cores["fma_async"] == (0 if fuse else n // nb16 - 1),
+                    f"bf16 Cholesky ({label}): K1 launches {cores}; want "
+                    f"{hist_products} history products on wgmma, none on "
+                    "fma")
             print(f"Cholesky bf16 storage n={n} ({label}): "
                   f"max|A - LL^T|/max|A| = {errs16[label]:.4e}; {t16:.1f} "
                   f"ms; launches K3b {potrf_panel_tail.launches}, K3a "
-                  f"{potrf_block_inv.launches}")
+                  f"{potrf_block_inv.launches}, K1 {cores} (every one of "
+                  f"the {hist_products} history products on wgmma)")
             del L16, Lf
         os.environ["ELX_PALLAS_POTRF"] = "1"
-        require(errs16["fused tail"] < 5e-2,
-                f"bf16 fused Cholesky: max|A - LL^T|/max|A| "
-                f"{errs16['fused tail']}")
+        require(all(e < 5e-2 for e in errs16.values()),
+                f"bf16 Cholesky: max|A - LL^T|/max|A| {errs16}")
         del a, a16, A16, ab
     finally:
         os.environ.pop("ELX_PALLAS_POTRF", None)
@@ -958,7 +1035,8 @@ def main() -> None:
     H2 = Et.DistMatrix.from_global(hv, grid=g2)
     X2 = Et.DistMatrix.from_global(xv, grid=g2)
     sync()
-    masked_rank_k.launches = symv_lower.launches = matmul.launches = 0
+    k1_reset()
+    masked_rank_k.launches = symv_lower.launches = 0
     t0 = time.perf_counter()
     Hk = Et.Herk(Et.LOWER, Et.NORMAL, -1.0, A2, beta=1.0, C=C2)
     Tk = Et.Trrk(Et.LOWER, Et.NORMAL, Et.NORMAL, -1.0, A2, B2, 1.0, C2)
@@ -1019,14 +1097,16 @@ def main() -> None:
               f"{t_back:.1f} ms")
         del GA, GB
         sync()
-        matmul.launches = potrf_block_inv.launches = 0
+        k1_reset()
+        potrf_block_inv.launches = 0
         potrf_panel_tail.launches = latrd_panel.launches = sb2tr.launches = 0
         k9_reset()
         t0 = time.perf_counter()
         wg, xg, rg = gen_def_eig_step(ga, gb, "AXBX")
         sync()
         gd_ms = (time.perf_counter() - t0) * 1e3
-        gd_launches = {"K1": matmul.launches, "K3a": potrf_block_inv.launches,
+        gd_launches = {"K1": matmul.launches, "K1 cores": k1_counts(),
+                       "K3a": potrf_block_inv.launches,
                        "K3b": potrf_panel_tail.launches,
                        "K5": latrd_panel.launches, "K6": sb2tr.launches,
                        "K9": k9_counts()}
@@ -1302,14 +1382,15 @@ def main() -> None:
         """Run fn once with every launch count and panel count at 0;
         (output, wall ms, counts)."""
         sync()
-        matmul.launches = 0
+        k1_reset()
         k9_reset()
         qr.cholqr_panels.update(fast=0, slow=0, short=0)
         t0 = time.perf_counter()
         out = fn()
         sync()
         ms = (time.perf_counter() - t0) * 1e3
-        return out, ms, {"K1": matmul.launches, "K9": k9_counts(),
+        return out, ms, {"K1": matmul.launches, "K1 cores": k1_counts(),
+                         "K9": k9_counts(),
                          "cholqr": dict(qr.cholqr_panels)}
 
     ls_runs = {}
@@ -1450,11 +1531,30 @@ def main() -> None:
     # to the largest entry, so 1e-2. Timed with CUDA events in turns
     # against the plain version, and against the library yardstick: one
     # torch.matmul(A_r, B gathered) for each rank r.
+    def k8_counts():
+        return {core: getattr(ring_summa_kernel, f"launches_{core}")
+                for core in K8_CORES}
+
     nk = 16384
-    k8_main = None
-    for dt, rtol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
-        av, bv = ring_blocks(randn(nk, nk, dtype=dt), randn(nk, nk, dtype=dt),
-                             g22)
+    k8_main, k8_entry = {}, {}
+    for dt, rtol, core, peak in ((torch.float32, 2e-5, "fma_async", PEAK_FP32),
+                                 (torch.bfloat16, 1e-2, "wgmma", PEAK_BF16)):
+        a_, b_ = randn(nk, nk, dtype=dt), randn(nk, nk, dtype=dt)
+        # the DistMatrix entry a user calls, on the 2x2 grid: one launch,
+        # on the core route() gives this type
+        k8_reset()
+        C8 = ring_summa(Et.DistMatrix.from_global(a_, grid=g22),
+                        Et.DistMatrix.from_global(b_, grid=g22))
+        sync()
+        k8_entry[core] = k8_counts()
+        require(k8_entry[core][core] == 1 and ring_summa_kernel.launches == 1,
+                f"K8 ring_summa {dt}: launches {k8_entry[core]}, not one on "
+                f"{core}")
+        del C8
+        av, bv = ring_blocks(a_, b_, g22)
+        del a_, b_
+        require(k8_route(av, bv) == core,
+                f"K8 {dt}: route {k8_route(av, bv)}, not {core}")
         err, scale = blocks_err(ring_summa_kernel(av, bv),
                                 ring_summa_plain(av, bv))
         require(err <= rtol * scale,
@@ -1463,18 +1563,17 @@ def main() -> None:
                                  lambda: ring_summa_plain(av, bv), 2)
         b_all = torch.cat(bv)
         lib_ms = time_ms(lambda: [torch.matmul(x, b_all) for x in av], 2)
-        bound = roofline(2 * nk ** 3, av[0].element_size() * 3 * nk * nk)
-        tc = ("" if dt == torch.float32 else
-              f"; {2 * nk ** 3 / 989e12 * 1e3:.4f} ms at the bf16 tensor-core "
-              "peak, which this FMA kernel does not use")
+        bound = roofline(2 * nk ** 3, av[0].element_size() * 3 * nk * nk,
+                         peak)
         print(f"K8 ring SUMMA {nk}^3 {str(dt)[6:]} on the 2x2 grid (p=4, "
-              f"kb={nk // 4}): max_abs_err {err:.3e} (tol {rtol} x "
+              f"kb={nk // 4}) on {core}: max_abs_err {err:.3e} (tol {rtol} x "
               f"{scale:.3e})  kernel {ms:.4f} ms "
               f"({2 * nk ** 3 / ms / 1e9:.2f} TFLOP/s, {bound[0] / ms:.1%} of "
-              f"the {bound[1]} bound {bound[0]:.4f} ms{tc})  plain "
-              f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms")
-        if k8_main is None:
-            k8_main = (err, ms, plain_ms, lib_ms, bound)
+              f"the {bound[1]} bound {bound[0]:.4f} ms)  plain "
+              f"{plain_ms:.4f} ms  library {lib_ms:.4f} ms (kernel / library "
+              f"{ms / lib_ms:.3f}); ring_summa entry launches "
+              f"{k8_entry[core]}")
+        k8_main[core] = (err, ms, plain_ms, lib_ms, bound)
         del av, bv, b_all
     # ragged, float64, on the 4x2 grid (p = 8): float64 sums, 1e-12
     av, bv = ring_blocks(randn(1000, 777, dtype=torch.float64),
@@ -1504,14 +1603,16 @@ def main() -> None:
     x = x + randn(*x.shape)
     ref_r3, ref_cr, _ = dist_gemm_step(a, b, x, gm, Et.Grid(dev))
     sync()
-    matmul.launches = ring_summa_kernel.launches = 0
+    k1_reset()
+    k8_reset()
     k9_reset()
     collectives.reset()
     t0 = time.perf_counter()
     nr3, ncr, r3_blocks = dist_gemm_step(a, b, x, gm, g22)
     sync()
     first_ms = (time.perf_counter() - t0) * 1e3
-    dist_launches = {"K1": matmul.launches, "K8": ring_summa_kernel.launches,
+    dist_launches = {"K1": matmul.launches, "K1 cores": k1_counts(),
+                     "K8": ring_summa_kernel.launches, "K8 cores": k8_counts(),
                      "K9": k9_counts()}
     dist_moved = dict(collectives.moved)
     t0 = time.perf_counter()
@@ -1538,6 +1639,7 @@ def main() -> None:
     cr_rel = abs(ncr.item() - ref_cr.item()) / ref_cr.item()
     require(cr_rel <= 1e-5, f"dist step: ||A G|| differs by {cr_rel}")
     require(dist_launches["K1"] > 0 and dist_launches["K8"] == 1
+            and dist_launches["K8 cores"]["fma_async"] == 1
             and dist_launches["K9"]["axpby"] == 4,
             f"dist step: the path did not launch its kernels: {dist_launches}")
     wall, by_name, count = device_profile(
@@ -1576,7 +1678,7 @@ def main() -> None:
                      ("GEMM_CANNON", gemm(Et.GEMM_CANNON)),
                      ("Gemm3D depth=2", lambda: Et.Gemm3D(A14, B14, depth=2))):
         sync()
-        matmul.launches = 0
+        k1_reset()
         collectives.reset()
         t0 = time.perf_counter()
         C14 = fn()
@@ -1669,13 +1771,39 @@ def main() -> None:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
+    # K1's launches by core over every main-path run that reads them (the
+    # bf16 ones are the bf16-storage Cholesky's history products), K8's
+    # over the dist step and the ring_summa entry
+    k1_paths = ([launches, lu_launches, fused_launches, gd_launches,
+                 dist_launches] + list(eig_launches.values())
+                + list(ls_runs.values()))
+    k1_launches = {core: sum(r["K1 cores"][core] for r in k1_paths)
+                   + sum(c[core] for c in chol16.values())
+                   for core in K1_CORES}
+    k8_launches = {core: dist_launches["K8 cores"][core]
+                   + sum(c[core] for c in k8_entry.values())
+                   for core in K8_CORES}
+    require(k1_launches["wgmma"] > 0 and k1_launches["fma_async"] > 0
+            and k8_launches["wgmma"] > 0 and k8_launches["fma_async"] > 0,
+            f"a K1 or K8 core never launched on the paths: K1 {k1_launches}"
+            f", K8 {k8_launches}")
+    print(f"K1 launches by core on the main paths {k1_launches}; K8 "
+          f"{k8_launches}")
+
     csrc = "elementalx_torch/kernels/csrc/"
+    k1_rows = [
+        ("fma_async", "K1 local GEMM f32 (matmul; FP32 FMA core on the "
+                      "cp.async pipeline, gemm_f32_pipe.cuh)"),
+        ("wgmma", "K1 local GEMM bf16 (matmul; tensor-core core, "
+                  "gemm_sm90.cuh)"),
+        ("fma", "K1 local GEMM, FMA core for operands not read in 16-byte "
+                "pieces and float64 (matmul; gemm_tile.cuh)"),
+    ]
     kernels = [
-        row("K1 local GEMM (matmul)", csrc + "matmul.cu",
-            "elementalx/kernels/matmul.py:39",
-            launches["K1"] + lu_launches["K1"] + eig_launches["latrd"]["K1"]
-            + eig_launches["sbr"]["K1"] + dist_launches["K1"], k1_main,
-            k1_main[3]),
+        row(name, csrc + "matmul.cu", "elementalx/kernels/matmul.py:39",
+            k1_launches[core], k1_main[core], k1_main[core][3])
+        for core, name in k1_rows if k1_launches[core] > 0
+    ] + [
         row("K2 masked rank-k update (masked_rank_k)", csrc + "trrk.cu",
             "elementalx/kernels/trrk.py:45", blas_launches["K2"], k2_main),
         row("K3a Cholesky diagonal block (potrf_block_inv)",
@@ -1699,9 +1827,15 @@ def main() -> None:
         row("K7 lower-triangle symv (symv_lower)", csrc + "symv.cu",
             "elementalx/kernels/symv.py:66", blas_launches["K7"], k7_main,
             k7_main[3]),
-        row("K8 ring SUMMA (ring_summa_kernel)", csrc + "ring_summa.cu",
-            "elementalx/kernels/ring_summa.py:93", dist_launches["K8"],
-            k8_main, k8_main[3]),
+    ] + [
+        row(name, csrc + "ring_summa.cu",
+            "elementalx/kernels/ring_summa.py:93", k8_launches[core],
+            k8_main[core], k8_main[core][3])
+        for core, name in (
+            ("fma_async", "K8 ring SUMMA f32 (ring_summa_kernel; FP32 FMA "
+                          "core on the cp.async pipeline)"),
+            ("wgmma", "K8 ring SUMMA bf16 (ring_summa_kernel; tensor-core "
+                      "core)"))
     ] + [
         row(f"K9 {name}", csrc + "elementwise.cu",
             f"elementalx/kernels/elementwise.py:{line}", k9_launches[name],

@@ -11,9 +11,13 @@ rows over the ring, [VC,*]: rank ``my`` holds A_my (M/p x K) and B_my
 with blk(h) the h-th of p column blocks of width kb = K/p, accumulated in
 f32 (f64 for f64) and rounded once to A's type; C goes back to [MC,MR].
 
-The CUDA kernel is ``csrc/ring_summa.cu``; its header says how it pulls B
-blocks through a pointer table where the TPU kernel pushes them round the
-ring, and what bounds it. ``ring_summa_kernel`` is its wrapper on the
+The CUDA kernels are in ``csrc/ring_summa.cu``; its header says how they
+pull B blocks through a table where the TPU kernel pushes them round the
+ring, and what bounds them. ``route`` picks the core as K1's does: bfloat16
+rings that the TMA can read go to the tensor cores
+(``csrc/gemm_sm90.cuh``), float32 ones to the FP32 FMA core on the cp.async
+ring (``csrc/gemm_f32_pipe.cuh``, the FMA core's result bit for bit), the
+rest to K1's FMA core. ``ring_summa_kernel`` is its wrapper on the
 per-rank blocks, ``ring_summa_plain`` the plain version (the same holder
 order, the same accumulation), and ``ring_summa`` the DistMatrix entry.
 """
@@ -29,6 +33,7 @@ from ..core.dmatrix import DistMatrix
 from ..core.redistribute import Copy
 from ..core.types import MC, MR, STAR, VC
 from .common import DTYPE_CODE, check_launch, current_stream, kernel_function, on_cuda
+from .matmul import FAST_CORE, tma_unit_dim
 
 #: ranks one launch can take (the kernel's pointer tables)
 MAX_RANKS = 64
@@ -37,6 +42,15 @@ _ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p)
+_FAST_ARGTYPES = _ARGTYPES[1:]
+
+#: the cores and the C entry of each
+CORES = {"wgmma": "elx_ring_summa_wgmma",
+         "fma_async": "elx_ring_summa_fma_async", "fma": "elx_ring_summa"}
+
+#: the fast cores' k-step (64 on the tensor cores, 32 on the FMA pipeline):
+#: kb = K/p must be a multiple of it, so that no k-step crosses two holders
+FAST_KB = 64
 
 
 def _shapes(a_blocks: Sequence[torch.Tensor],
@@ -101,16 +115,51 @@ def _check(a_blocks, b_blocks) -> None:
         raise ValueError(f"ring_summa: at most {MAX_RANKS} ranks")
 
 
+def route(a_blocks: Sequence[torch.Tensor],
+          b_blocks: Sequence[torch.Tensor]) -> str:
+    """The K8 core a CUDA ring takes, by dtype, shape and alignment alone:
+    ``"wgmma"`` (bfloat16) or ``"fma_async"`` (float32) for blocks that can
+    be read row-major in place in 16-byte pieces, with kb = K/p a positive
+    multiple of ``FAST_KB``, else ``"fma"``. No device is needed: the CPU
+    tests check it."""
+    _, _, _, kb, _ = _shapes(a_blocks, b_blocks)
+    blocks = list(a_blocks) + list(b_blocks)
+    fast = FAST_CORE.get(blocks[0].dtype)
+    if fast is None or any(x.dtype != blocks[0].dtype for x in blocks):
+        return "fma"
+    if kb == 0 or kb % FAST_KB:
+        return "fma"
+    if any(tma_unit_dim(x) != 1 for x in blocks):
+        return "fma"
+    return fast
+
+
 def ring_summa_kernel(a_blocks: Sequence[torch.Tensor],
                       b_blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """C blocks of the ring SUMMA (rank r holds a_blocks[r], b_blocks[r]).
     CPU tensors take ``ring_summa_plain``; CUDA tensors launch the K8
-    kernel, one launch for every rank on the card, or raise.
-    ``ring_summa_kernel.launches`` counts kernel launches."""
+    kernel of ``route``, one launch for every rank on the card, or raise.
+    ``ring_summa_kernel.launches_<core>`` counts each core's launches,
+    ``.launches`` all of them."""
     if not on_cuda(*a_blocks, *b_blocks):
         return ring_summa_plain(a_blocks, b_blocks)
-    p, Mloc, K, _, N = _shapes(a_blocks, b_blocks)
+    _shapes(a_blocks, b_blocks)
     _check(a_blocks, b_blocks)
+    core = route(a_blocks, b_blocks)
+    c_blocks = _launch(core, a_blocks, b_blocks)
+    if c_blocks[0].numel():  # empty C blocks launch nothing
+        ring_summa_kernel.launches += 1
+        name = f"launches_{core}"
+        setattr(ring_summa_kernel, name, getattr(ring_summa_kernel, name) + 1)
+    return c_blocks
+
+
+def _launch(core: str, a_blocks: Sequence[torch.Tensor],
+            b_blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Launch K8's ``core`` on checked CUDA blocks that it takes (``route``
+    decides which; a test may hold two cores against each other) and
+    return the C blocks; empty ones launch nothing. Counts nothing."""
+    p, Mloc, K, _, N = _shapes(a_blocks, b_blocks)
     a0 = a_blocks[0]
     c_blocks = [torch.empty((Mloc, N), dtype=a0.dtype, device=a0.device)
                 for _ in range(p)]
@@ -120,18 +169,28 @@ def ring_summa_kernel(a_blocks: Sequence[torch.Tensor],
     def table(xs):
         return (ctypes.c_longlong * p)(*xs)
 
-    fn = kernel_function("elx_ring_summa", _ARGTYPES)
+    tables = (table(range(p)), table(x.data_ptr() for x in a_blocks),
+              table(x.data_ptr() for x in b_blocks),
+              table(x.data_ptr() for x in c_blocks), current_stream(a0))
     with torch.cuda.device(a0.device):
-        rc = fn(DTYPE_CODE[a0.dtype], p, p, Mloc, N, K, table(range(p)),
-                table(x.data_ptr() for x in a_blocks),
-                table(x.data_ptr() for x in b_blocks),
-                table(x.data_ptr() for x in c_blocks), current_stream(a0))
-    check_launch(rc, "elx_ring_summa")
-    ring_summa_kernel.launches += 1
+        if core == "fma":
+            fn = kernel_function(CORES[core], _ARGTYPES)
+            rc = fn(DTYPE_CODE[a0.dtype], p, p, Mloc, N, K, *tables)
+        else:
+            fn = kernel_function(CORES[core], _FAST_ARGTYPES)
+            rc = fn(p, p, Mloc, N, K, *tables)
+    check_launch(rc, f"K8 ({core})")
     return c_blocks
 
 
-ring_summa_kernel.launches = 0
+def reset_launches() -> None:
+    """Zero K8's launch counts (all cores)."""
+    ring_summa_kernel.launches = 0
+    for core in CORES:
+        setattr(ring_summa_kernel, f"launches_{core}", 0)
+
+
+reset_launches()
 
 
 def ring_summa(A: DistMatrix, B: DistMatrix) -> DistMatrix:

@@ -151,6 +151,78 @@ def test_cpu_tensors_take_plain_version_and_count_nothing():
     assert (matmul.launches, potrf_block_inv.launches) == before
 
 
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("operands,core", [
+    (lambda: (_bf16(64, 128), _bf16(128, 64)), "wgmma"),
+    (lambda: (_bf16(128, 64).mT, _bf16(128, 64)), "wgmma"),
+    (lambda: (_bf16(64, 128), _bf16(64, 128).mH), "wgmma"),
+    (lambda: (_bf16(128, 64).mT, _bf16(64, 128).mT), "wgmma"),
+    (lambda: (_bf16(1024, 1024)[512:, :384],
+              _bf16(1024, 1024)[512:768, :384].mH), "wgmma"),
+    (lambda: (_bf16(64, 0), _bf16(0, 16)), "wgmma"),
+    (lambda: (_bf16(257, 129), _bf16(129, 65)), "fma"),
+    (lambda: (_bf16(64, 130)[:, :128], _bf16(128, 64)), "fma"),
+    (lambda: (_bf16(64, 136)[:, 1:129], _bf16(128, 64)), "fma"),
+    (lambda: (_bf16(64, 128), _bf16(128, 72)[:, 3:67]), "fma"),
+    (lambda: (torch.zeros(64, 128), torch.zeros(128, 64)), "fma_async"),
+    (lambda: (torch.zeros(128, 64).mT, torch.zeros(64, 128).mT),
+     "fma_async"),
+    (lambda: (torch.zeros(1000, 777), torch.zeros(777, 1001)), "fma"),
+    (lambda: (torch.zeros(777, 1000).mT, torch.zeros(1001, 777).mT),
+     "fma"),
+    (lambda: (torch.zeros(64, 128, dtype=torch.float64),
+              torch.zeros(128, 64, dtype=torch.float64)), "fma"),
+], ids=["bf16-contiguous", "bf16-A.mT", "bf16-B.mH", "bf16-both-mT",
+        "bf16-history-slices", "bf16-K0", "bf16-ragged-rows",
+        "bf16-odd-stride", "bf16-offset-base", "bf16-B-offset",
+        "f32-contiguous", "f32-both-mT", "f32-ragged-rows",
+        "f32-ragged-mT", "f64"])
+def test_matmul_route(operands, core):
+    """K1's core follows from dtype, shape and alignment alone: bfloat16
+    and float32 operands that can be read in place in 16-byte pieces (a
+    16-byte aligned base, one unit stride, the other a multiple of 16
+    bytes; any when K = 0) take the tensor cores and the FP32 pipeline;
+    the rest, and float64, the FMA core."""
+    from elementalx_torch.kernels.matmul import route
+
+    a, b = operands()
+    assert route(a, b) == core
+
+
+@pytest.mark.parametrize("dt,k,core", [
+    (torch.bfloat16, 1024, "wgmma"), (torch.float32, 1024, "fma_async"),
+    (torch.float64, 1024, "fma"), (torch.bfloat16, 4 * 96, "fma"),
+    (torch.float32, 4 * 32, "fma"), (torch.bfloat16, 777 + 3, "fma"),
+], ids=["bf16", "f32", "f64", "bf16-kb96", "f32-kb32", "bf16-ragged"])
+def test_ring_summa_route(dt, k, core):
+    """K8's core: bf16 / f32 row-major blocks read in 16-byte pieces with
+    kb = K/p a multiple of 64 take the tensor cores / the FP32 pipeline;
+    any other ring the FMA core."""
+    from elementalx_torch.kernels.ring_summa import route
+
+    p = 4
+    a = [torch.zeros((100, k), dtype=dt) for _ in range(p)]
+    b = [torch.zeros((k // p, 136), dtype=dt) for _ in range(p)]
+    assert route(a, b) == core
+
+
+def test_route_counters_start_at_zero_and_cpu_counts_nothing():
+    from elementalx_torch.kernels.matmul import CORES, reset_launches
+    from elementalx_torch.kernels.ring_summa import CORES as K8_CORES
+    from elementalx_torch.kernels.ring_summa import ring_summa_kernel
+
+    reset_launches()
+    a = torch.ones((64, 64), dtype=torch.bfloat16)
+    matmul(a, a)
+    ring_summa_kernel([a] * 2, [a[:32]] * 2)
+    assert matmul.launches == 0
+    assert all(getattr(matmul, f"launches_{c}") == 0 for c in CORES)
+    assert all(hasattr(ring_summa_kernel, f"launches_{c}") for c in K8_CORES)
+
+
 def test_on_cuda_refuses_mixed_devices():
     assert common.on_cuda(torch.zeros(1)) is False
     with pytest.raises(ValueError):
@@ -770,6 +842,102 @@ def test_matmul_kernel_vs_plain(cuda, case):
     assert out.dtype == ref.dtype
     err = (out.double() - ref.double()).abs().max().item()
     assert err <= rtol * max(ref.double().abs().max().item(), 1.0)
+
+
+def _operand(g, cuda, rows, cols, transposed, dt):
+    """A rows x cols operand, row-major or the .mT view of a cols x rows
+    one."""
+    if transposed:
+        return torch.randn((cols, rows), generator=g, device=cuda).to(dt).mT
+    return torch.randn((rows, cols), generator=g, device=cuda).to(dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 128, 512), (1000, 1016, 1032)],
+                         ids=["tiles", "ragged"])
+@pytest.mark.parametrize("out_dt,rtol", [(torch.bfloat16, 1e-2),
+                                         (torch.float32, 1e-4)],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("ta", [False, True], ids=["A", "A.mT"])
+@pytest.mark.parametrize("tb", [False, True], ids=["B", "B.mT"])
+def test_matmul_wgmma_vs_plain(cuda, shape, out_dt, rtol, ta, tb):
+    """K1's tensor-core core for every A/B majorness (TMA over each
+    operand's own unit stride, wgmma's transpose bits for MN-major ones),
+    ragged M, N and K with 16-byte rows. Tolerances, of max|C|: bf16
+    output one bf16 step (1e-2); float32 output sums exact bf16 products
+    in f32 in another order than cuBLAS, 1e-4 at K <= 16384."""
+    from elementalx_torch.kernels.matmul import route
+
+    M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(20)
+    a = _operand(g, cuda, M, K, ta, torch.bfloat16)
+    b = _operand(g, cuda, K, N, tb, torch.bfloat16)
+    assert route(a, b) == "wgmma"
+    before = (matmul.launches, matmul.launches_wgmma)
+    out = matmul(a, b, out_dtype=out_dt)
+    ref = matmul_plain(a, b, out_dtype=out_dt)
+    torch.cuda.synchronize()
+    assert (matmul.launches, matmul.launches_wgmma) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert out.dtype == out_dt and out.shape == (M, N)
+    err = (out.double() - ref.double()).abs().max().item()
+    assert err <= rtol * ref.double().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dt", [torch.bfloat16, torch.float32])
+def test_matmul_wgmma_k0_writes_zeros(cuda, out_dt):
+    a = torch.empty((200, 0), dtype=torch.bfloat16, device=cuda)
+    b = torch.empty((0, 300), dtype=torch.bfloat16, device=cuda)
+    before = matmul.launches_wgmma
+    out = matmul(a, b, out_dtype=out_dt)
+    torch.cuda.synchronize()
+    assert matmul.launches_wgmma == before + 1
+    assert out.shape == (200, 300) and not out.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_matmul_misaligned_bf16_takes_fma(cuda):
+    """A bf16 operand whose rows are not 16-byte multiples (129 columns)
+    or whose base is off 16 bytes cannot be read by the TMA: the FMA core
+    takes it, and the answer is the same up to one bf16 step."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    full = torch.randn((257, 136), generator=g, device=cuda).bfloat16()
+    b = torch.randn((129, 65), generator=g, device=cuda).bfloat16()
+    for a in (full[:, :129].contiguous(), full[:, 1:130]):
+        before = (matmul.launches_fma, matmul.launches_wgmma)
+        out = matmul(a, b)
+        ref = matmul_plain(a, b)
+        torch.cuda.synchronize()
+        assert (matmul.launches_fma, matmul.launches_wgmma) == (
+            before[0] + 1, before[1])
+        err = (out.double() - ref.double()).abs().max().item()
+        assert err <= 1e-2 * ref.double().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8192, 768, 512), (1000, 780, 1004),
+                                   (300, 36, 200), (64, 0, 16)],
+                         ids=["history", "ragged", "K36", "K0"])
+@pytest.mark.parametrize("ta", [False, True], ids=["A", "A.mT"])
+@pytest.mark.parametrize("tb", [False, True], ids=["B", "B.mT"])
+def test_matmul_fma_async_equals_fma_core(cuda, shape, ta, tb):
+    """float32 on the cp.async pipeline runs the FMA core's arithmetic:
+    each C entry one fma chain over k in order, so the two cores agree bit
+    for bit (ragged shapes with 16-byte rows, which the pipeline takes)."""
+    from elementalx_torch.kernels.matmul import _launch, route
+
+    M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(22)
+    a = _operand(g, cuda, M, K, ta, torch.float32)
+    b = _operand(g, cuda, K, N, tb, torch.float32)
+    assert route(a, b) == "fma_async"
+    before = matmul.launches_fma_async
+    out = matmul(a, b)
+    ref = _launch("fma", a, b, torch.float32)
+    torch.cuda.synchronize()
+    assert matmul.launches_fma_async == before + 1
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.cuda
@@ -1452,6 +1620,52 @@ def test_ring_summa_kernel_vs_plain(cuda, height, p, dt, rtol, shape):
     got = torch.tensor(C.global_array(), dtype=torch.float64)
     assert (got - want.cpu()).abs().max().item() <= \
         rtol * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("height,p", [(2, 4), (4, 8)], ids=["2x2", "4x2"])
+@pytest.mark.parametrize("dt,core", [(torch.bfloat16, "wgmma"),
+                                     (torch.float32, "fma_async")],
+                         ids=["bf16", "f32"])
+def test_ring_summa_fast_cores(cuda, height, p, dt, core):
+    """K8 on its fast cores (kb = K/p a multiple of 64, 16-byte rows):
+    bf16 on the tensor cores against the plain version within one bf16
+    step (1e-2 of max|C|), float32 on the cp.async pipeline equal bit for
+    bit to the FMA core."""
+    import elementalx_torch as Et
+    from elementalx_torch.core.redistribute import Copy
+    from elementalx_torch.core.types import STAR, VC
+    from elementalx_torch.kernels.ring_summa import (
+        _launch,
+        ring_summa_kernel,
+        ring_summa_plain,
+        route,
+    )
+
+    m, k, n = 1000, 1024, 1032
+    grid = Et.Grid([cuda] * p, height=height)
+    g = torch.Generator(device=cuda).manual_seed(23)
+    a = torch.randn((m, k), generator=g, device=cuda).to(dt)
+    b = torch.randn((k, n), generator=g, device=cuda).to(dt)
+    av = [x.contiguous() for x in Copy(Et.DistMatrix.from_global(
+        a, grid=grid), VC, STAR).blocks]
+    bv = [x.contiguous() for x in Copy(Et.DistMatrix.from_global(
+        b, grid=grid), VC, STAR).blocks]
+    assert route(av, bv) == core
+    before = getattr(ring_summa_kernel, f"launches_{core}")
+    out = ring_summa_kernel(av, bv)
+    torch.cuda.synchronize()
+    assert getattr(ring_summa_kernel, f"launches_{core}") == before + 1
+    if core == "wgmma":
+        ref = ring_summa_plain(av, bv)
+        scale = max(r.double().abs().max().item() for r in ref)
+        for o, r in zip(out, ref):
+            assert (o.double() - r.double()).abs().max().item() <= \
+                1e-2 * scale
+    else:
+        ref = _launch("fma", av, bv)
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, r) for o, r in zip(out, ref))
 
 
 @pytest.mark.cuda
