@@ -27,7 +27,9 @@ Phases (each raises on failure, so the script exits non-zero):
      and a small float64 run held against the same step on the CPU;
   7. K5 (latrd panel) and K6 (bulge chase) against their plain versions:
      K5 at the HermitianEig path's panels (M=8192, k0=0 and 4096), a
-     ragged panel and a float64 one; K6 at n=8192 with b=256 and b=128
+     ragged panel and a float64 one, each against its bound (the trailing
+     triangle streamed once per column; a triangle that fits in the 50 MB
+     L2 is marked so); K6 at n=8192 with b=256 and b=128
      and at n=1000 with b=16, through the spectrum of (d, e) and the
      orthogonality of Q2, and in float64 entry by entry;
   8. the HermitianEig slice: ``hermitian_eig_step`` at n=8192, float32,
@@ -37,15 +39,18 @@ Phases (each raises on failure, so the script exits non-zero):
      against the same step on the CPU;
   9. K2 (masked rank-k update), K3b/K3c (fused panel tail) and K7
      (lower-triangle symv) against their plain versions at the level-3,
-     HPD and symv shapes; K3c once at each of the HPD path's 32 panel
-     shapes, the launches its JSON entry reports;
+     HPD and symv shapes, K7 on the core ``route`` gives each case (TMA
+     tiles, or the scalar unit at n=16383) with its GB/s, and its two
+     cores in turns at n=16384; K3c once at each of the HPD path's 32
+     panel shapes, the launches its JSON entry reports;
  10. the fused-tail HPD slice: ``entry()`` at n=16384 under
      ``ELX_PALLAS_POTRF=1`` (set for the phase only), gated on the scaled
      residual and 32 K3b launches; a bfloat16-storage Cholesky at n=16384
      through the fused tail beside the default path, gated on every
      history product taking K1's tensor cores and none its FMA core, with
      its time; and the public Herk,
-     Trrk and Symv at phase 9's shapes, with their K2/K7 launch counts;
+     Trrk and Symv (n=16384 and 16383: one launch on each K7 core) at
+     phase 9's shapes, with their K2/K7 launch counts;
  11. the HermitianGenDefEig slice: ``gen_def_eig_step`` at n=8192,
      float32, AXBX, with the fused tail, gated on the scaled residual,
      the B-orthogonality and the launch counts, with the residual split
@@ -58,7 +63,9 @@ Phases (each raises on failure, so the script exits non-zero):
      fill at 16384 x 256, axpby at 8192 x 256, transpose at 8192 x 16384
      and 16384 x 8192, every entry at 16384^2, the level-1 block's);
      checked in bfloat16, float64, a ragged 1000 x 777 case with .mT
-     inputs, and the conjugate transpose of a real input;
+     inputs, and the conjugate transpose of a real input; then the host's
+     time per axpby call at 16384 x 256 (1000 unsynchronised calls)
+     against torch.add, gated on one device kernel a call;
  13. the least-squares slice: every public function of lapack/qr.py,
      lq.py, gqr.py and euclidean_min.py at about n=300 in float64 held
      against the same call on the CPU; ``least_squares_step`` at
@@ -85,7 +92,8 @@ Phases (each raises on failure, so the script exits non-zero):
 Phases 4, 6, 8, 10 and 11 also read K9's launches (the residual Gemm's
 beta C is a K9 axpby) and gate that no K9 transpose runs on their paths.
 The line before the last is a JSON summary of the kernels (K1 and K8 one
-row per core that the main paths launched), each with its bound (the
+row per core that the main paths launched, K7 one per core), each with
+its bound (the
 larger of its bytes over 3.35 TB/s and its operations over the peak of the
 units it runs on: 67 TFLOP/s FP32, 989 TFLOP/s dense bf16 on the tensor
 cores, the H100 SXM's published peaks); the last line is
@@ -112,8 +120,9 @@ def require(cond: bool, msg: str) -> None:
 
 
 #: H100 SXM published peaks: FP32 outside the tensor cores, dense bf16 on
-#: the tensor cores, HBM3
+#: the tensor cores, HBM3; and its L2's size
 PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+L2_BYTES = 50e6
 
 
 def roofline(flops: float, nbytes: float, peak: float = PEAK_FP32):
@@ -172,6 +181,10 @@ def main() -> None:
         ring_summa_plain,
     )
     from elementalx_torch.kernels.sb2tr import sb2tr, sb2tr_plain
+    from elementalx_torch.kernels.symv import CORES as K7_CORES
+    from elementalx_torch.kernels.symv import _launch as k7_launch
+    from elementalx_torch.kernels.symv import reset_launches as k7_reset
+    from elementalx_torch.kernels.symv import route as k7_route
     from elementalx_torch.kernels.symv import (
         symv_lower,
         symv_lower_plain,
@@ -549,15 +562,34 @@ def main() -> None:
               f"max_abs_err P {errs[0]:.3e} W {errs[1]:.3e} tau "
               f"{errs[2]:.3e} (rtol {rtol}), max|(|[1;v]|^2 tau - 2)| "
               f"{unit:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+        # per column j: the symv over the trailing order m_j = m0 - j - 1
+        # (2 m_j^2) and the V/W corrections (8 m_j j). Column j + 1's symv
+        # needs column j's reflector, so every column streams its trailing
+        # lower triangle again (m_j (m_j + 1) / 2 words); P and W are
+        # written once. A triangle that fits in the 50 MB L2 comes back
+        # from there after the first column: the HBM bound does not bind.
+        m0 = M - k0
+        esz = a.element_size()
+        fl = sum(2 * (m0 - j - 1) ** 2 + 8 * (m0 - j - 1) * j
+                 for j in range(w))
+        tri = sum((m0 - j - 1) * (m0 - j) / 2 for j in range(w))
+        bound = roofline(fl, esz * (tri + 2 * m0 * w))
+        in_l2 = esz * m0 * (m0 + 1) / 2 <= L2_BYTES
+        print(f"K5 ({M},{k0},{w}) {str(dt)[6:]}: bound {bound[0]:.4f} ms "
+              f"(by {bound[1]}: {esz * tri / 1e9:.2f} GB, the trailing "
+              f"triangle once a column), kernel at "
+              f"{bound[0] / ms:.1%} of it"
+              + ("; the triangle fits in the 50 MB L2, so the HBM bound "
+                 "does not bind" if in_l2 else ""))
         if k5_main is None:
-            # per column j: the symv over the trailing order m_j (2 m_j^2)
-            # and the V/W corrections (8 m_j j); the trailing lower
-            # triangle read once, P and W written once
-            m0 = M - k0
-            fl = sum(2 * (m0 - j - 1) ** 2 + 8 * (m0 - j - 1) * j
-                     for j in range(w))
-            k5_main = (max(errs), ms, plain_ms,
-                       roofline(fl, 4 * (m0 * (m0 + 1) / 2 + 2 * m0 * w)))
+            k5_main = (max(errs), ms, plain_ms, bound)
+            # the whole reduction of order M: every column j < M - 2
+            # streams its trailing triangle of order M - j - 1
+            whole = esz * sum((M - j - 1) * (M - j) / 2
+                              for j in range(M - 2))
+            print(f"K5 bound of the whole reduction at M={M} "
+                  f"{str(dt)[6:]}: {whole / PEAK_BYTES * 1e3:.1f} ms "
+                  f"({whole / 1e9:.1f} GB)")
         del a, out, ref
 
     # K6: the spectrum of (d, e) within 100 n eps max|w| of eigvalsh of
@@ -884,16 +916,24 @@ def main() -> None:
 
     # K7 tolerance: 1e-5 of max|y| in float32 (sums of n terms in another
     # order), 1e-12 in float64; NaN in the strict upper triangle must not
-    # reach y; two runs give the same bits.
-    k7_main = None
-    for n7, k0, dt in ((16384, 0, torch.float32), (16384, 5000, torch.float32),
-                       (4096, 0, torch.float64)):
+    # reach y; two runs give the same bits. Each case names the core
+    # route() gives it: the TMA tiles for rows 16-byte multiples apart (any
+    # k0), the scalar unit otherwise (n = 16383 float32, the order of
+    # phase 10's second Symv). At n = 16384 the two cores also run in turns
+    # (tma, unit, unit, tma) through their C entries.
+    k7_main = {}
+    for n7, k0, dt, want in ((16384, 0, torch.float32, "tma"),
+                             (16384, 5000, torch.float32, "tma"),
+                             (4096, 0, torch.float64, "tma"),
+                             (16383, 0, torch.float32, "unit")):
         A = randn(n7, n7, dtype=dt)
         v = randn(n7 - k0, dtype=dt)
         An = A.clone()
         iu = torch.triu_indices(n7, n7, 1, device=dev)
         An[iu[0], iu[1]] = float("nan")
         del iu
+        core = k7_route(An[k0:, k0:])
+        require(core == want, f"K7 n={n7} k0={k0}: route {core}, not {want}")
         run = (lambda: symv_lower(An, v)) if k0 == 0 else \
             (lambda: symv_lower_trailing(An, v, k0))
         y, y2 = run(), run()
@@ -907,23 +947,32 @@ def main() -> None:
         require(torch.equal(y, y2), f"K7 n={n7}: two runs differ")
         ms, plain_ms = time_pair(run, lambda: symv_lower_plain(A[k0:, k0:], v),
                                  10)
-        m7 = n7 - k0
-        b7 = roofline(2 * m7 * m7, 4 * (m7 * (m7 + 1) / 2 + 2 * m7))
+        m7, esz = n7 - k0, A.element_size()
+        tri_bytes = esz * m7 * (m7 + 1) / 2
+        b7 = roofline(2 * m7 * m7, tri_bytes + esz * 2 * m7)
         extra = ""
-        if k7_main is None:
+        if k0 == 0 and dt == torch.float32:
             H = torch.tril(A) + torch.tril(A, -1).mT
             lib_ms = time_ms(lambda: torch.mv(H, v), 10)
             del H
-            k7_main = (err, ms, plain_ms, lib_ms, b7)
+            k7_main[core] = (err, ms, plain_ms, lib_ms, b7)
             extra = (f"  torch.mv on the full symmetric matrix {lib_ms:.4f} "
                      f"ms")
-        gbs = 2 * m7 * m7 / ms / 1e6
-        print(f"K7 symv n={n7} k0={k0} {str(dt)[6:]} (NaN above the "
+        print(f"K7 symv ({core}) n={n7} k0={k0} {str(dt)[6:]} (NaN above the "
               f"diagonal): max_abs_err {err:.3e} (tol {rtol} x {scale:.3e}),"
-              f" same bits twice  kernel {ms:.4f} ms ({gbs:.1f} GB/s of the "
-              f"triangle; bound {b7[0]:.4f} ms)  plain {plain_ms:.4f} ms"
-              f"{extra}")
+              f" same bits twice  kernel {ms:.4f} ms "
+              f"({tri_bytes / ms / 1e6:.1f} GB/s of the triangle; bound "
+              f"{b7[0]:.4f} ms, {b7[0] / ms:.1%} of it)  plain "
+              f"{plain_ms:.4f} ms{extra}")
+        if core == "tma" and n7 == 16384 and k0 == 0:
+            tma_ms, unit_ms = time_pair(lambda: k7_launch("tma", An, v),
+                                        lambda: k7_launch("unit", An, v), 10)
+            print(f"K7 cores in turns at n={n7} f32: tma {tma_ms:.4f} ms "
+                  f"({tri_bytes / tma_ms / 1e6:.1f} GB/s), unit "
+                  f"{unit_ms:.4f} ms ({tri_bytes / unit_ms / 1e6:.1f} GB/s)")
         del A, An, v, y, y2, ref
+    require(set(k7_main) == set(K7_CORES), f"K7: no row for "
+                                           f"{set(K7_CORES) - set(k7_main)}")
 
     # ---- 10. the fused-tail HPD slice ----
     os.environ["ELX_PALLAS_POTRF"] = "1"
@@ -1030,34 +1079,45 @@ def main() -> None:
     A2 = Et.DistMatrix.from_global(a, grid=g2)
     B2 = Et.DistMatrix.from_global(b, grid=g2)
     C2 = Et.DistMatrix.from_global(c, grid=g2)
+    # Symv at n (rows 16-byte multiples apart: K7's TMA tiles) and at
+    # n - 1 (float32 rows of 65532 bytes: the scalar unit)
     hv = randn(n, n)
     xv = randn(n, 1)
     H2 = Et.DistMatrix.from_global(hv, grid=g2)
     X2 = Et.DistMatrix.from_global(xv, grid=g2)
+    H3 = Et.DistMatrix.from_global(hv[1:, 1:].contiguous(), grid=g2)
+    X3 = Et.DistMatrix.from_global(xv[1:].contiguous(), grid=g2)
     sync()
     k1_reset()
-    masked_rank_k.launches = symv_lower.launches = 0
+    k7_reset()
+    masked_rank_k.launches = 0
     t0 = time.perf_counter()
     Hk = Et.Herk(Et.LOWER, Et.NORMAL, -1.0, A2, beta=1.0, C=C2)
     Tk = Et.Trrk(Et.LOWER, Et.NORMAL, Et.NORMAL, -1.0, A2, B2, 1.0, C2)
     Yv = Et.Symv(Et.LOWER, 1.0, H2, X2)
+    Yv3 = Et.Symv(Et.LOWER, 1.0, H3, X3)
     sync()
     blas_ms = (time.perf_counter() - t0) * 1e3
-    blas_launches = {"K2": masked_rank_k.launches, "K7": symv_lower.launches,
+    blas_launches = {"K2": masked_rank_k.launches,
+                     "K7": {core: getattr(symv_lower, f"launches_{core}")
+                            for core in K7_CORES},
                      "K1": matmul.launches}
-    require(blas_launches == {"K2": 2, "K7": 1, "K1": 0},
+    require(blas_launches == {"K2": 2, "K7": {"tma": 1, "unit": 1},
+                              "K1": 0},
             f"Herk/Trrk/Symv launches {blas_launches}")
     checks = ((Hk.data, masked_rank_k_plain(True, -1.0, a, a.mT, 1.0, c)),
               (Tk.data, masked_rank_k_plain(True, -1.0, a, b, 1.0, c)),
-              (Yv.data[:, 0], symv_lower_plain(hv, xv[:, 0])))
-    for (out, ref), name in zip(checks, ("Herk", "Trrk", "Symv")):
+              (Yv.data[:, 0], symv_lower_plain(hv, xv[:, 0])),
+              (Yv3.data[:, 0], symv_lower_plain(hv[1:, 1:], xv[1:, 0])))
+    for (out, ref), name in zip(checks, ("Herk", "Trrk", "Symv",
+                                         "Symv n-1")):
         err = (out - ref).abs().max().item()
         require(err <= 1e-5 * ref.abs().max().item(),
                 f"{name} at the phase 9 shape: {err} from the plain result")
-    print(f"Herk + Trrk ({M2}x{K2w}, lower, C {M2}^2) + Symv (n={n}, "
-          f"LOWER) f32: {blas_ms:.1f} ms together; launches "
+    print(f"Herk + Trrk ({M2}x{K2w}, lower, C {M2}^2) + Symv (n={n} and "
+          f"{n - 1}, LOWER) f32: {blas_ms:.1f} ms together; launches "
           f"{blas_launches}; each within 1e-5 of its plain version")
-    del a, b, c, hv, xv, A2, B2, C2, H2, X2, Hk, Tk, Yv, checks
+    del a, b, c, hv, xv, A2, B2, C2, H2, X2, H3, X3, Hk, Tk, Yv, Yv3, checks
 
     # ---- 11. the HermitianGenDefEig slice ----
     # n=300 float64, all three pencils: the card against the CPU, w to
@@ -1291,6 +1351,50 @@ def main() -> None:
         del x, y
     require(set(k9_main) == set(k9_entries),
             f"K9: no timed row for {set(k9_entries) - set(k9_main)}")
+
+    # K9's host cost: 1000 calls of axpby with Python-number scalars at the
+    # residual Gemm's 16384 x 256 without a synchronisation (perf_counter
+    # around them; one synchronisation after), against torch.add, in turns
+    # (K9, torch, torch, K9); the device kernels of one call (a number goes
+    # by value: exactly one); and torch.full beside fill, the one call that
+    # also returns a fresh array.
+    x, y = randn(n, nrhs), randn(n, nrhs)
+
+    def host_us(fn):
+        for _ in range(50):
+            fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        t1 = time.perf_counter()
+        sync()
+        return (t1 - t0) * 1e3
+
+    k9_call = lambda: k9.axpby(0.3, x, 1.0, y)  # noqa: E731
+    add_call = lambda: torch.add(y, x, alpha=0.3)  # noqa: E731
+    h1, a1, a2, h2 = (host_us(k9_call), host_us(add_call),
+                      host_us(add_call), host_us(k9_call))
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            k9_call()
+        sync()
+    # the profiler may miss the first launches of a window, never add any:
+    # every kernel it saw must be K9's and at most one a call
+    kern = [ev.name for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    require(0 < len(kern) <= 10 and all("ew_flat_kernel" in k for k in kern),
+            f"K9 axpby with Python-number scalars, 10 calls: device kernels "
+            f"{kern}")
+    full_ms = time_ms(lambda: torch.full((n, nrhs), 0.3, device=dev), 10)
+    print(f"K9 host cost at {n}x{nrhs}: axpby {(h1 + h2) / 2:.2f} us a call, "
+          f"torch.add {(a1 + a2) / 2:.2f} us (1000 calls unsynchronised, in "
+          f"turns); {len(kern)} device kernels seen for 10 calls, every "
+          f"one K9's; torch.full "
+          f"{full_ms:.4f} ms beside fill's row")
+    del x, y
 
     # ---- 13. the least-squares slice ----
     # (d) first: each public function of lapack/qr.py, lq.py, gqr.py and
@@ -1824,9 +1928,14 @@ def main() -> None:
         row("K6 band to tridiagonal bulge chase (sb2tr)", csrc + "sb2tr.cu",
             "elementalx/kernels/sb2tr.py:276", eig_launches["sbr"]["K6"],
             k6_main),
-        row("K7 lower-triangle symv (symv_lower)", csrc + "symv.cu",
-            "elementalx/kernels/symv.py:66", blas_launches["K7"], k7_main,
-            k7_main[3]),
+    ] + [
+        row(name, csrc + "symv.cu", "elementalx/kernels/symv.py:66",
+            blas_launches["K7"][core], k7_main[core], k7_main[core][3])
+        for core, name in (
+            ("tma", "K7 lower-triangle symv (symv_lower; TMA tiles, "
+                    "symv_unit.cuh SymvTiles)"),
+            ("unit", "K7 lower-triangle symv (symv_lower; scalar unit for "
+                     "rows not 16-byte multiples apart)"))
     ] + [
         row(name, csrc + "ring_summa.cu",
             "elementalx/kernels/ring_summa.py:93", k8_launches[core],

@@ -14,8 +14,10 @@ import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -138,6 +140,74 @@ def check_launch(rc: int, name: str) -> None:
 def current_stream(t: torch.Tensor) -> int:
     """The raw cudaStream_t of PyTorch's current stream on t's device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class Entry:
+    """One C entry of the kernel library, named with its ctypes argument
+    types where a module is imported and bound on its first call (the
+    library is built then, never at import). With ``packed`` (a ``struct``
+    format) the entry takes one pointer to its arguments packed in that
+    layout: a call then converts one argument instead of one each."""
+
+    __slots__ = ("name", "argtypes", "fn", "pack")
+
+    def __init__(self, name: str, argtypes: tuple = (),
+                 packed: Optional[str] = None):
+        self.name, self.fn = name, None
+        self.pack = struct.Struct(packed).pack if packed else None
+        self.argtypes = (ctypes.c_char_p,) if packed else argtypes
+
+    def bind(self):
+        """The ctypes function (the library is built on the first call)."""
+        if self.fn is None:
+            self.fn = kernel_function(self.name, self.argtypes)
+        return self.fn
+
+    def __call__(self, *args) -> int:
+        fn = self.fn or self.bind()
+        return fn(self.pack(*args)) if self.pack else fn(*args)
+
+
+#: (current device index, raw current stream of a device index), bound on
+#: the first launch: PyTorch's own C bindings where the build has them,
+#: else the public calls (which build a Stream object each time)
+_queries: list = []
+
+
+def _bind_queries() -> None:
+    get_device = getattr(torch._C, "_cuda_getDevice",
+                         torch.cuda.current_device)
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        def raw(index):
+            return torch.cuda.current_stream(index).cuda_stream
+    _queries.extend((get_device, raw))
+
+
+def raw_stream(t: torch.Tensor) -> int:
+    """The raw cudaStream_t of PyTorch's current stream on t's device,
+    without building a Stream object."""
+    if not _queries:
+        _bind_queries()
+    return _queries[1](t.get_device())
+
+
+def launch(entry: Entry, t: torch.Tensor, *args) -> None:
+    """Call ``entry(*args, stream)`` on PyTorch's current stream of t's
+    device and raise on a CUDA error. The lean path of the host-bound
+    kernels: no device guard when t's device is already current, the raw
+    stream handle without a Stream object, the argument types set once."""
+    if not _queries:
+        _bind_queries()
+    get_device, raw = _queries
+    index = t.get_device()
+    if get_device() == index:
+        rc = entry(*args, raw(index))
+    else:
+        with torch.cuda.device(index):
+            rc = entry(*args, raw(index))
+    if rc:
+        check_launch(rc, entry.name)
 
 
 def cooperative_grid(entry: str, t: torch.Tensor) -> int:

@@ -1,17 +1,23 @@
 // K9: the level-1 elementwise kernels and the tiled transpose.
 //
-//   elx_ew_axpby:     out = beta * y + alpha * x   (Axpy is beta = 1)
-//   elx_ew_scale:     out = alpha * x
-//   elx_ew_hadamard:  out = x .* y
-//   elx_ew_fill:      out = alpha on the logical m x n region of an M x N
-//                     array, 0 in its padding
-//   elx_ew_transpose: out = x^T (also x^H for real x)
+//   axpby:     out = beta * y + alpha * x   (Axpy is beta = 1)
+//   scale:     out = alpha * x
+//   hadamard:  out = x .* y
+//   fill:      out = alpha on the logical m x n region of an M x N array,
+//              0 in its padding
+//   transpose: out = x^T (also x^H for real x)
+//
+// all through one C entry, elx_ew, which takes the call's arguments packed
+// into one struct (EwCall): a host-bound call at 16384 x 256 costs the
+// host one argument's conversion, not fifteen.
 //
 // x and y are m x n, each read through its own two strides (a .mT view
 // or a slice is read in place); out is a fresh contiguous array that the
 // wrapper allocates, so nothing is in place, as in the TPU kernels. alpha
-// and beta come through device pointers to one element of out's type, so
-// a scalar that lives on the card costs no host synchronisation.
+// and beta come by value (a double holding the scalar already rounded to
+// out's type on the host, so a call launches one kernel) or, for a scalar
+// that lives on the card, through a device pointer to one element of out's
+// type (no host synchronisation).
 //
 // Replaces the TPU kernels of elementalx/kernels/elementwise.py: axpy,
 // scale and hadamard (through _ew_call), fill and transpose, the Pallas
@@ -29,12 +35,14 @@
 // What bounds them: bytes. axpby and hadamard read two arrays and write
 // one, scale and transpose read one and write one, fill writes one: at
 // 16384^2 float that is 3.2, 2.1 and 1.1 GB, 0.96, 0.64 and 0.32 ms at
-// 3.35 TB/s. The streaming kernels run a grid-stride loop sized to fill
-// every SM. When every array is contiguous and 16-byte aligned (the main
-// paths' case) they move 16-byte vectors over the flat arrays; otherwise
-// they walk out in row-major order (one 64-bit division a thread, then
-// the row and column are stepped by adds), so writes coalesce, and reads
-// coalesce for inputs with a unit column stride. The transpose reads a
+// 3.35 TB/s. When every array is contiguous and 16-byte aligned (the main
+// paths' case) the streaming kernels move 16-byte vectors over the flat
+// arrays, kUnroll of them a thread (loads before stores), in a grid sized
+// to the work: one vector a thread measured best (probes/k7_k9.py).
+// Otherwise they run a grid-stride loop sized to fill every SM and walk
+// out in row-major order (one 64-bit division a thread, then the row and
+// column are stepped by adds), so writes coalesce, and reads coalesce
+// for inputs with a unit column stride. The transpose reads a
 // 32 x 32 tile of x into shared memory along x's rows and writes it along
 // out's rows; the tile is padded by one column, so reading it by columns
 // hits 32 distinct banks, and both the global reads and the global writes
@@ -42,14 +50,19 @@
 // the streaming kernels, and vector accesses in the transpose.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <string.h>
 
 namespace {
 
 enum Dtype { kF32 = 0, kF64 = 1, kBF16 = 2 };
-enum Op { kAxpby = 0, kScale = 1, kHadamard = 2, kFill = 3 };
+enum Op { kAxpby, kScale, kHadamard, kFill, kTranspose };
 
 constexpr int kThreads = 256;      // threads of a streaming block
 constexpr int kBlocksPerSM = 8;    // 2048 resident threads per SM
+#ifndef ELX_EW_UNROLL
+#define ELX_EW_UNROLL 1
+#endif
+constexpr int kUnroll = ELX_EW_UNROLL;  // 16-byte vectors a thread (flat)
 constexpr int kTile = 32;          // transpose tile (kTile x kTile)
 constexpr int kTileRows = 8;       // rows of threads of a transpose block
 
@@ -95,8 +108,9 @@ struct EwArgs {
   long long sx0, sx1;
   const T* y;
   long long sy0, sy1;
-  const T* alpha;
+  const T* alpha;     // on the device, or nullptr: alpha_v
   const T* beta;
+  double alpha_v, beta_v;
   T* out;             // contiguous m x n
 };
 
@@ -121,8 +135,11 @@ __device__ inline typename Ew<T>::A element(typename Ew<T>::A a,
 template <typename T, int OP>
 __device__ inline void load_scalars(const EwArgs<T>& g, typename Ew<T>::A* a,
                                     typename Ew<T>::A* b) {
-  if (OP == kAxpby || OP == kScale || OP == kFill) *a = Ew<T>::in(*g.alpha);
-  if (OP == kAxpby) *b = Ew<T>::in(*g.beta);
+  using A = typename Ew<T>::A;
+  if (OP == kAxpby || OP == kScale || OP == kFill)
+    *a = g.alpha ? Ew<T>::in(*g.alpha) : static_cast<A>(g.alpha_v);
+  if (OP == kAxpby)
+    *b = g.beta ? Ew<T>::in(*g.beta) : static_cast<A>(g.beta_v);
 }
 
 // Any strides: out in row-major order, (i, j) stepped without division.
@@ -165,35 +182,49 @@ struct alignas(16) Pack {
 };
 
 // Contiguous, 16-byte aligned arrays (fill over the whole array): flat
-// 16-byte vector loads and stores, then the tail of total mod V elements.
+// 16-byte vectors, kUnroll a thread (block-strided, so a warp's accesses
+// coalesce), then the tail of total mod V elements in the last block.
 template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads) ew_flat_kernel(EwArgs<T> g) {
   using A = typename Ew<T>::A;
   constexpr int V = 16 / sizeof(T);
   const long long total = static_cast<long long>(g.m) * g.n;
   const long long nvec = total / V;
-  const long long S = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
+  const long long k0 =
+      static_cast<long long>(blockIdx.x) * kThreads * kUnroll + threadIdx.x;
   A a = A(0), b = A(0);
   load_scalars<T, OP>(g, &a, &b);
   const Pack<T>* __restrict__ xp = reinterpret_cast<const Pack<T>*>(g.x);
   const Pack<T>* __restrict__ yp = reinterpret_cast<const Pack<T>*>(g.y);
   Pack<T>* __restrict__ op = reinterpret_cast<Pack<T>*>(g.out);
-#pragma unroll 2
-  for (long long k = t; k < nvec; k += S) {
-    Pack<T> xv, yv, o;
-    if (uses_x(OP)) xv = xp[k];
-    if (uses_y(OP)) yv = yp[k];
+  Pack<T> xv[kUnroll], yv[kUnroll];
 #pragma unroll
-    for (int e = 0; e < V; ++e)
-      o.v[e] = Ew<T>::out(element<T, OP>(a, b, uses_x(OP) ? xv.v[e] : T(),
-                                         uses_y(OP) ? yv.v[e] : T()));
-    op[k] = o;
+  for (int u = 0; u < kUnroll; ++u) {
+    const long long k = k0 + u * kThreads;
+    if (k < nvec) {
+      if (uses_x(OP)) xv[u] = xp[k];
+      if (uses_y(OP)) yv[u] = yp[k];
+    }
   }
-  for (long long k = nvec * V + t; k < total; k += S)
-    g.out[k] = Ew<T>::out(element<T, OP>(a, b, uses_x(OP) ? g.x[k] : T(),
-                                         uses_y(OP) ? g.y[k] : T()));
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const long long k = k0 + u * kThreads;
+    if (k < nvec) {
+      Pack<T> o;
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        o.v[e] = Ew<T>::out(element<T, OP>(a, b,
+                                           uses_x(OP) ? xv[u].v[e] : T(),
+                                           uses_y(OP) ? yv[u].v[e] : T()));
+      op[k] = o;
+    }
+  }
+  if (blockIdx.x == gridDim.x - 1) {
+    const long long k = nvec * V + threadIdx.x;
+    if (k < total)
+      g.out[k] = Ew<T>::out(element<T, OP>(a, b, uses_x(OP) ? g.x[k] : T(),
+                                           uses_y(OP) ? g.y[k] : T()));
+  }
 }
 
 // x (m x n, strides s0, s1) -> out (n x m, contiguous). Block (kTile,
@@ -257,23 +288,29 @@ template <typename T, int OP>
 cudaError_t launch_ew(const EwArgs<T>& g, cudaStream_t st) {
   const long long total = static_cast<long long>(g.m) * g.n;
   if (total == 0) return cudaSuccess;
-  int sms = 0;
-  ELX_RETURN_IF_ERROR(sm_count(&sms));
   const bool flat =
       flat_ok(g.out, g.n, 1, g.m, g.n) &&
       (!uses_x(OP) || flat_ok(g.x, g.sx0, g.sx1, g.m, g.n)) &&
       (!uses_y(OP) || flat_ok(g.y, g.sy0, g.sy1, g.m, g.n)) &&
       (OP != kFill || (g.mv >= g.m && g.nv >= g.n));
-  const long long per_thread = flat ? 16 / sizeof(T) : 1;
-  long long blocks = (total + kThreads * per_thread - 1) /
-                     (kThreads * per_thread);
-  const long long most = static_cast<long long>(sms) * kBlocksPerSM;
-  if (blocks > most) blocks = most;
-  if (flat)
+  if (flat) {
+    // one thread for every kUnroll vectors; at least one block, whose
+    // threads take the tail
+    const long long per_block = static_cast<long long>(kThreads) * kUnroll;
+    const long long nvec = total / (16 / sizeof(T));
+    long long blocks = (nvec + per_block - 1) / per_block;
+    if (blocks < 1) blocks = 1;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
     ew_flat_kernel<T, OP><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
         g);
-  else
-    ew_kernel<T, OP><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(g);
+    return cudaGetLastError();
+  }
+  long long blocks = (total + kThreads - 1) / kThreads;
+  int sms = 0;
+  ELX_RETURN_IF_ERROR(sm_count(&sms));
+  const long long most = static_cast<long long>(sms) * kBlocksPerSM;
+  if (blocks > most) blocks = most;
+  ew_kernel<T, OP><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(g);
   return cudaGetLastError();
 }
 
@@ -281,8 +318,8 @@ template <int OP>
 cudaError_t dispatch_ew(int dtype, int m, int n, int mv, int nv,
                         const void* x, long long sx0, long long sx1,
                         const void* y, long long sy0, long long sy1,
-                        const void* alpha, const void* beta, void* out,
-                        void* stream) {
+                        const void* alpha, double alpha_v, const void* beta,
+                        double beta_v, void* out, void* stream) {
   if (m < 0 || n < 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define ELX_EW_CASE(CODE, T)                                              \
@@ -291,7 +328,7 @@ cudaError_t dispatch_ew(int dtype, int m, int n, int mv, int nv,
         EwArgs<T>{m, n, mv, nv, static_cast<const T*>(x), sx0, sx1,       \
                   static_cast<const T*>(y), sy0, sy1,                     \
                   static_cast<const T*>(alpha), static_cast<const T*>(beta), \
-                  static_cast<T*>(out)},                                  \
+                  alpha_v, beta_v, static_cast<T*>(out)},                 \
         st);
   ELX_EW_CASE(kF32, float)
   ELX_EW_CASE(kF64, double)
@@ -315,51 +352,59 @@ cudaError_t launch_transpose(int m, int n, const void* x, long long s0,
   return cudaGetLastError();
 }
 
+// One call of a K9 entry, packed by the caller into consecutive 8-byte
+// fields (Python's struct.pack "<6qQdQ2qQdQ2q2Q"), so that a call crosses
+// from the host language with one argument.
+struct EwCall {
+  long long op;        // kAxpby, kScale, kHadamard, kFill, or kTranspose
+  long long dtype;     // 0 float, 1 double, 2 bfloat16, for every array
+  long long m, n;      // out's shape (transpose: x's shape; fill: M x N)
+  long long mv, nv;    // fill: the logical region
+  const void* alpha;   // one element on the device, or nullptr: alpha_v
+  double alpha_v;      // already rounded to dtype
+  const void* x;
+  long long sx0, sx1;
+  const void* beta;
+  double beta_v;
+  const void* y;
+  long long sy0, sy1;
+  void* out;           // contiguous
+  void* stream;
+};
+
 }  // namespace
 
-// dtype: 0 float, 1 double, 2 bfloat16, for every array and scalar. x, y:
-// m x n through strides (sx0, sx1), (sy0, sy1); out: m x n contiguous;
-// alpha, beta: one element each on the device. Each entry returns a
-// cudaError_t.
-extern "C" int elx_ew_axpby(int dtype, int m, int n, const void* alpha,
-                            const void* x, long long sx0, long long sx1,
-                            const void* beta, const void* y, long long sy0,
-                            long long sy1, void* out, void* stream) {
-  return dispatch_ew<kAxpby>(dtype, m, n, 0, 0, x, sx0, sx1, y, sy0, sy1,
-                             alpha, beta, out, stream);
-}
-
-extern "C" int elx_ew_scale(int dtype, int m, int n, const void* alpha,
-                            const void* x, long long sx0, long long sx1,
-                            void* out, void* stream) {
-  return dispatch_ew<kScale>(dtype, m, n, 0, 0, x, sx0, sx1, nullptr, 0, 0,
-                             alpha, nullptr, out, stream);
-}
-
-extern "C" int elx_ew_hadamard(int dtype, int m, int n, const void* x,
-                               long long sx0, long long sx1, const void* y,
-                               long long sy0, long long sy1, void* out,
-                               void* stream) {
-  return dispatch_ew<kHadamard>(dtype, m, n, 0, 0, x, sx0, sx1, y, sy0, sy1,
-                                nullptr, nullptr, out, stream);
-}
-
-// out: M x N contiguous; alpha on rows < m and columns < n, 0 elsewhere.
-extern "C" int elx_ew_fill(int dtype, int M, int N, int m, int n,
-                           const void* alpha, void* out, void* stream) {
-  return dispatch_ew<kFill>(dtype, M, N, m, n, nullptr, 0, 0, nullptr, 0, 0,
-                            alpha, nullptr, out, stream);
-}
-
-// x: m x n through strides (s0, s1); out: n x m contiguous.
-extern "C" int elx_ew_transpose(int dtype, int m, int n, const void* x,
-                                long long s0, long long s1, void* out,
-                                void* stream) {
-  if (m < 0 || n < 0) return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return launch_transpose<float>(m, n, x, s0, s1, out, st);
-  if (dtype == kF64) return launch_transpose<double>(m, n, x, s0, s1, out, st);
-  if (dtype == kBF16)
-    return launch_transpose<__nv_bfloat16>(m, n, x, s0, s1, out, st);
+// x, y: m x n through strides (sx0, sx1), (sy0, sy1); out: m x n
+// contiguous (transpose: n x m); the fields an op does not use are
+// ignored. Returns a cudaError_t.
+extern "C" int elx_ew(const void* packed) {
+  EwCall c;
+  memcpy(&c, packed, sizeof c);
+  if (c.m < 0 || c.n < 0 || c.m > 0x7fffffffLL || c.n > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const int m = static_cast<int>(c.m), n = static_cast<int>(c.n);
+  const int dtype = static_cast<int>(c.dtype);
+  if (c.op == kTranspose) {
+    const cudaStream_t st = static_cast<cudaStream_t>(c.stream);
+    if (dtype == kF32)
+      return launch_transpose<float>(m, n, c.x, c.sx0, c.sx1, c.out, st);
+    if (dtype == kF64)
+      return launch_transpose<double>(m, n, c.x, c.sx0, c.sx1, c.out, st);
+    if (dtype == kBF16)
+      return launch_transpose<__nv_bfloat16>(m, n, c.x, c.sx0, c.sx1, c.out,
+                                             st);
+    return cudaErrorInvalidValue;
+  }
+  const int mv = static_cast<int>(c.mv), nv = static_cast<int>(c.nv);
+#define ELX_EW_OP(OP)                                                       \
+  if (c.op == OP)                                                           \
+    return dispatch_ew<OP>(dtype, m, n, mv, nv, c.x, c.sx0, c.sx1, c.y,      \
+                           c.sy0, c.sy1, c.alpha, c.alpha_v, c.beta,         \
+                           c.beta_v, c.out, c.stream);
+  ELX_EW_OP(kAxpby)
+  ELX_EW_OP(kScale)
+  ELX_EW_OP(kHadamard)
+  ELX_EW_OP(kFill)
+#undef ELX_EW_OP
   return cudaErrorInvalidValue;
 }

@@ -26,29 +26,37 @@
 //   1. acur for the thread's own rows, and the block's partial sigma^2;
 //   2. every block reduces the sigma^2 partials in the same fixed order,
 //      forms the reflector (v is computed on the fly from acur), writes
-//      its rows of V and P, adds its symv units into its own partial y
-//      (ypart, one length-M vector per block) and its rows' share of
-//      W^T v and V^T v;
-//   3. each row's owner sums the G partial y's in block order; the panel
-//      dots are reduced;
+//      its rows of V and P, adds its share of the symv's tiles into its
+//      own partial y (ypart, one length-M vector per block) and its rows'
+//      share of W^T v and V^T v;
+//   3. the G partial y's are summed in block order, 64 rows a block, the
+//      blocks that touched no row of a strip skipped (SymvTiles::
+//      sum_partials, eight loads in flight a thread); the panel dots are
+//      reduced;
 //   4. p for the own rows and the block's partial v^T p; after the
 //      barrier every block sums those and writes w for its rows.
-// The symv (symv_unit.cuh, shared with K7) streams only the lower
-// triangle: a unit is 32 rows x 1024 columns; each thread owns 4 columns
-// of the unit and adds both A[r, c] v[c] (row sums, reduced across the
-// block by a butterfly reduce-scatter) and A[r, c] v[r] (column sums, in
-// registers). No float
+// The symv runs on SymvTiles (symv_unit.cuh, shared with K7): 64 x 64
+// tiles of the trailing lower triangle stream through a TMA ring in shared
+// memory, each used for both A_IJ v_J and A_IJ^T v_I; the block's tiles
+// are a contiguous range of the triangle from the strip that holds the
+// pivot row (strips above it meet v = 0). A does not change within a
+// panel, so the first tiles of column j + 1's symv are loaded while the
+// block works through the rest of column j and its barriers. No float
 // atomics anywhere: every sum has a fixed order, so the result does not
 // change from run to run. Row gp of W (needed by the next column's acur
 // in every block) is recomputed by each block with the same function the
 // row's owner uses, which saves a fifth barrier.
 //
-// What bounds it: the symv's lower-triangle traffic, about M^3/6 words
-// over a whole reduction, and 4 barriers per column. What it gives up:
-// tensor cores for the panel products; overlapping the barriers.
+// What bounds it: the symv's lower-triangle traffic. Column j+1's symv
+// needs column j's reflector, so each column streams the trailing
+// triangle again: w (m0^2/2) words a panel of order m0 = M - k0 (16.9 GB,
+// 5.05 ms at (8192, 0, 128)), about M^3/6 words over a whole reduction.
+// Then 4 barriers per column. What it gives up: tensor cores for the
+// panel products; overlapping the barriers with the symv.
 #include <cooperative_groups.h>
 
 #include "symv_unit.cuh"
+#include "tma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -56,8 +64,6 @@ namespace {
 
 constexpr int kThreads = elx::kSymvThreads;  // threads of a block
 constexpr int kWarps = elx::kSymvWarps;
-constexpr int kR = elx::kSymvR;              // rows of a symv unit
-constexpr int kUW = elx::kSymvUW;            // columns of a unit
 constexpr int kMaxNB = 128;                  // widest panel
 constexpr int kBlocksPerSM = 2;              // most blocks per SM
 
@@ -69,7 +75,8 @@ constexpr int kBlocksPerSM = 2;              // most blocks per SM
 
 template <typename T>
 struct LatrdArgs {
-  const T* a;   // (M, M) row-major, lower triangle read
+  const T* a;   // (M, M), row stride lda, lower triangle read
+  long long lda;
   int M, k0, w, nb;
   T* Pt;        // (nb, M) output P, transposed
   T* Wt;        // (nb, M) output W, transposed
@@ -153,12 +160,12 @@ __device__ __noinline__ T p_row(const LatrdArgs<T>& g, int r, int jl, T tau,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) latrd_kernel(LatrdArgs<T> g) {
+__global__ void __launch_bounds__(kThreads)
+    latrd_kernel(const __grid_constant__ CUtensorMap map, LatrdArgs<T> g) {
+  extern __shared__ uint8_t smem[];
   __shared__ T red[kWarps];
   __shared__ T sVg[kMaxNB], sWg[kMaxNB];
   __shared__ T sdots[2 * kMaxNB];
-  __shared__ T svr[kR];
-  __shared__ T srow[kWarps][kR];
   __shared__ T s_wnext, s_pgp;
   cg::grid_group grid = cg::this_grid();
 
@@ -168,6 +175,12 @@ __global__ void __launch_bounds__(kThreads) latrd_kernel(LatrdArgs<T> g) {
   const int gtid = b * kThreads + tid, nthr = G * kThreads;
   T* yp = g.ypart + static_cast<long long>(b) * M;
   if (tid == 0) s_wnext = T(0);
+  // the symv's tiles over the trailing block; column jl's walk starts at
+  // the strip holding its pivot row (local row jl + 1)
+  elx::SymvTiles<T> tiles(smem, &map, k0, k0, M - k0);
+  long long lo, hi;
+  tiles.range(tiles.strip_of(0 + 1), b, G, lo, hi);
+  tiles.prefetch(lo, hi);
 
   for (int jl = 0; jl < g.w; ++jl) {
     const int gj = k0 + jl, gp = gj + 1;
@@ -182,8 +195,8 @@ __global__ void __launch_bounds__(kThreads) latrd_kernel(LatrdArgs<T> g) {
     // ---- 1. acur on the own rows; partial sigma^2
     T part = T(0);
     for (int r = k0 + gtid; r < M; r += nthr) {
-      T x = r >= gj ? g.a[static_cast<long long>(r) * M + gj]
-                    : g.a[static_cast<long long>(gj) * M + r];
+      T x = r >= gj ? g.a[static_cast<long long>(r) * g.lda + gj]
+                    : g.a[static_cast<long long>(gj) * g.lda + r];
       x -= panel_dot(g, r, jl, sWg, sVg);
       g.acur[r] = x;
       if (r > gp) part += x * x;
@@ -192,7 +205,7 @@ __global__ void __launch_bounds__(kThreads) latrd_kernel(LatrdArgs<T> g) {
     if (tid == 0) g.pnorm[b] = part;
     grid.sync();
 
-    // ---- 2. reflector; V and P rows; symv units; panel dots
+    // ---- 2. reflector; V and P rows; symv tiles; panel dots
     Reflector<T> h;
     {
       const T sigma2 = partials_sum(g.pnorm, G, red);
@@ -214,21 +227,10 @@ __global__ void __launch_bounds__(kThreads) latrd_kernel(LatrdArgs<T> g) {
       g.Vt[off] = v;
       g.Pt[off] = r > gp ? v : (r == gp ? h.beta : __ldcg(g.acur + r));
     }
-    {
-      const auto vat = [&h](int r) { return h.v(r); };
-      const int nstrips = (M - gp + kR - 1) / kR;
-      // units are dealt round-robin over the strips in order: this
-      // block's first unit in a strip is q0 = (b - units before) mod G
-      int q0 = b;
-      for (int s = 0; s < nstrips; ++s) {
-        const int rs = gp + s * kR, re = min(rs + kR, M);
-        const int nq = (re - 1 - k0) / kUW + 1;
-        for (int q = q0; q < nq; q += G)
-          elx::symv_unit(g.a, M, M, vat, rs, re, k0 + q * kUW, yp, svr,
-                         srow);
-        q0 -= nq % G;
-        if (q0 < 0) q0 += G;
-      }
+    tiles.walk([&h](int r) { return h.v(r); }, k0, lo, hi, yp);
+    if (jl + 1 < g.w) {
+      tiles.range(tiles.strip_of(jl + 2), b, G, lo, hi);
+      tiles.prefetch(lo, hi);
     }
     {
       const int nrows = M - gp;
@@ -254,19 +256,8 @@ __global__ void __launch_bounds__(kThreads) latrd_kernel(LatrdArgs<T> g) {
     }
     grid.sync();
 
-    // ---- 3. y on the own rows; the panel dots
-    for (int r = k0 + gtid; r < M; r += nthr) {
-      T s[4] = {T(0), T(0), T(0), T(0)};
-      const T* col = g.ypart + r;
-      int bb = 0;
-      for (; bb + 4 <= G; bb += 4) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          s[k] += __ldcg(col + static_cast<long long>(bb + k) * M);
-      }
-      for (; bb < G; ++bb) s[0] += __ldcg(col + static_cast<long long>(bb) * M);
-      g.yg[r] = (s[0] + s[1]) + (s[2] + s[3]);
-    }
+    // ---- 3. y on the trailing rows; the panel dots
+    tiles.sum_partials(g.ypart, M, k0, tiles.strip_of(jl + 1), g.yg);
     if (warp == 0) {
       for (int e = b; e < 2 * jl; e += G) {
         const int slot = e < jl ? e : nb + e - jl;
@@ -311,6 +302,7 @@ __global__ void __launch_bounds__(kThreads) latrd_kernel(LatrdArgs<T> g) {
 
 template <typename T>
 cudaError_t grid_size(int* out) {
+  constexpr int smem = elx::SymvTiles<T>::kSmemBytes;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   ELX_RETURN_IF_ERROR(cudaGetDevice(&dev));
   ELX_RETURN_IF_ERROR(
@@ -318,8 +310,10 @@ cudaError_t grid_size(int* out) {
   ELX_RETURN_IF_ERROR(
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev));
   if (!coop) return cudaErrorNotSupported;
+  ELX_RETURN_IF_ERROR(cudaFuncSetAttribute(
+      latrd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   ELX_RETURN_IF_ERROR(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, latrd_kernel<T>, kThreads, 0));
+      &per_sm, latrd_kernel<T>, kThreads, smem));
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   *out = sms * (per_sm < kBlocksPerSM ? per_sm : kBlocksPerSM);
   return cudaSuccess;
@@ -327,13 +321,24 @@ cudaError_t grid_size(int* out) {
 
 template <typename T>
 cudaError_t launch(LatrdArgs<T> g, int grid, cudaStream_t st) {
+  constexpr int elem = sizeof(T);
+  if (reinterpret_cast<uintptr_t>(g.a) % 16 || (g.lda * elem) % 16 ||
+      g.lda < g.M)
+    return cudaErrorInvalidValue;
   int want = 0;
   ELX_RETURN_IF_ERROR(grid_size<T>(&want));
   if (grid != want) return cudaErrorInvalidValue;
-  void* args[] = {&g};
+  CUtensorMap map;
+  ELX_RETURN_IF_ERROR(elx::tma::make_map(
+      &map,
+      elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_FLOAT64,
+      elem, g.a, g.M, g.M, g.lda, elx::kSymvT, elx::kSymvT,
+      CU_TENSOR_MAP_SWIZZLE_NONE));
+  void* args[] = {&map, &g};
   ELX_RETURN_IF_ERROR(cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(latrd_kernel<T>), dim3(grid), dim3(kThreads),
-      args, 0, st));
+      args, elx::SymvTiles<T>::kSmemBytes, st));
   return cudaGetLastError();
 }
 
@@ -346,14 +351,15 @@ extern "C" int elx_latrd_grid(int dtype, int* grid) {
   return cudaErrorInvalidValue;
 }
 
-// dtype: 0 float, 1 double. a: (M, M) row-major. Pt, Wt, Vt: (nb, M),
+// dtype: 0 float, 1 double. a: (M, M), row stride lda (a multiple of 16
+// bytes, a 16-byte aligned base: the TMA reads it). Pt, Wt, Vt: (nb, M),
 // zeroed by the caller; tau: (nb,) zeroed; scratch: acur, yg, pbuf (M);
 // ypart (grid, M) zeroed; pnorm, pvp (grid); pdots (grid, 2 nb); dots
 // (2 nb). Needs 0 <= k0, w <= nb <= 128, k0 + w <= M - 2.
 extern "C" int elx_latrd_panel(int dtype, int M, int k0, int w, int nb,
-                               const void* a, void* Pt, void* Wt, void* Vt,
-                               void* tau, void* acur, void* ypart, void* yg,
-                               void* pbuf, void* pnorm, void* pdots,
+                               const void* a, long long lda, void* Pt,
+                               void* Wt, void* Vt, void* tau, void* acur,
+                               void* ypart, void* yg, void* pbuf, void* pnorm, void* pdots,
                                void* dots, void* pvp, int grid, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || k0 < 0 || w < 0 || nb <= 0 || nb > kMaxNB || w > nb ||
@@ -362,7 +368,7 @@ extern "C" int elx_latrd_panel(int dtype, int M, int k0, int w, int nb,
   if (w == 0) return cudaSuccess;
 #define ELX_LATRD_ARGS(T)                                                  \
   LatrdArgs<T> {                                                           \
-    static_cast<const T*>(a), M, k0, w, nb, static_cast<T*>(Pt),           \
+    static_cast<const T*>(a), lda, M, k0, w, nb, static_cast<T*>(Pt),      \
         static_cast<T*>(Wt), static_cast<T*>(Vt), static_cast<T*>(tau),    \
         static_cast<T*>(acur), static_cast<T*>(ypart), static_cast<T*>(yg), \
         static_cast<T*>(pbuf), static_cast<T*>(pnorm),                     \

@@ -19,11 +19,13 @@ The five wrappers:
 
 Each returns a fresh contiguous tensor; inputs are 2-D with any strides
 (``.mT`` views are read in place). alpha and beta may be Python numbers or
-0-d tensors: they reach the kernel as one element of the output's type on
-the device (a tensor on the card costs no host synchronisation; a number
-is written there by a fill launch, not copied from the host). bfloat16
-computes in float32 and rounds once, as the plain versions do, so kernel
-and plain version agree bit for bit.
+0-d tensors. A number goes to the kernel by value, rounded on the host to
+the output's type exactly as ``torch.full`` rounds it (``host_scalar``),
+so a call launches one kernel; a tensor is cast to the output's type on
+the device and read there through its pointer (no host synchronisation).
+bfloat16 computes in float32 and rounds once, as the plain versions do, so
+kernel and plain version agree bit for bit. The wrappers launch through
+``common.launch``, the lean host path.
 
 Types on CUDA: float32, float64 and bfloat16. Complex input has no kernel
 and raises ``NotImplementedError``; its CPU path works. The JAX package
@@ -33,26 +35,26 @@ tileable; on CUDA the port has no fallback.
 
 from __future__ import annotations
 
-import ctypes
+import struct
 from typing import Optional, Sequence, Tuple
 
 import torch
 
-from .common import (
-    DTYPE_CODE,
-    check_launch,
-    current_stream,
-    kernel_function,
-    on_cuda,
-)
+from .common import DTYPE_CODE, Entry, launch, on_cuda
 
 _INT32_MAX = 2 ** 31 - 1
-_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_AXPBY_ARGS = (_I, _I, _I, _P, _P, _L, _L, _P, _P, _L, _L, _P, _P)
-_SCALE_ARGS = (_I, _I, _I, _P, _P, _L, _L, _P, _P)
-_HADAMARD_ARGS = (_I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _P)
-_FILL_ARGS = (_I, _I, _I, _I, _I, _P, _P, _P)
-_TRANSPOSE_ARGS = (_I, _I, _I, _P, _L, _L, _P, _P)
+#: every K9 call goes through one C entry, its arguments packed into
+#: csrc/elementwise.cu's EwCall: op, dtype, m, n, mv, nv, alpha (pointer,
+#: value), x (pointer, two strides), beta (pointer, value), y (pointer, two
+#: strides), out, stream
+_EW = Entry("elx_ew", packed="<6qQdQ2qQdQ2q2Q")
+_AXPBY, _SCALE, _HADAMARD, _FILL, _TRANSPOSE = range(5)
+
+#: below this magnitude a float32 or bfloat16 rounding can neither
+#: overflow nor meet torch's overflow check
+_SAFE = 3.0e38
+#: a float32 (struct rounds a double to it to nearest even) and its bits
+_F32, _U32 = struct.Struct("<f"), struct.Struct("<I")
 
 
 def device_scalar(v, dtype: torch.dtype,
@@ -62,6 +64,38 @@ def device_scalar(v, dtype: torch.dtype,
     if isinstance(v, torch.Tensor):
         return v.detach().to(device=device, dtype=dtype).reshape(())
     return torch.full((), v, dtype=dtype, device=device)
+
+
+def host_scalar(v, dtype: torch.dtype) -> float:
+    """The Python number v rounded to ``dtype`` on the host exactly as
+    ``torch.full((), v, dtype=dtype)`` rounds it, as a float: float64
+    keeps it; float32 rounds it to nearest even; bfloat16 rounds it to
+    float32 and then to bfloat16, both to nearest even (PyTorch's double
+    rounding). NaN, infinities and magnitudes from 3e38 up go through
+    ``torch.full`` on the CPU itself, which keeps its NaN, its overflow to
+    inf and its overflow error."""
+    f = float(v)
+    if dtype is torch.float64:
+        return f
+    if not abs(f) < _SAFE:
+        return torch.full((), f, dtype=dtype).item()
+    f32 = _F32.pack(f)
+    if dtype is torch.float32:
+        return _F32.unpack(f32)[0]
+    bits = _U32.unpack(f32)[0]
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16 << 16
+    return _F32.unpack(_U32.pack(bits))[0]
+
+
+def _scalar(v, like: torch.Tensor):
+    """(device pointer, value, holder) of a K9 scalar for a kernel writing
+    like's type: a tensor is cast and moved to like's device (its pointer,
+    0.0, and the cast tensor, which the caller keeps alive until the
+    launch), a number rounded on the host (0, its value, None)."""
+    if type(v) is not float and isinstance(v, torch.Tensor):
+        t = device_scalar(v, like.dtype, like.device)
+        return t.data_ptr(), 0.0, t
+    return 0, host_scalar(v, like.dtype), None
 
 
 def _arith(t: torch.Tensor) -> torch.Tensor:
@@ -123,7 +157,15 @@ def transpose_plain(x: torch.Tensor, conjugate: bool = False
 # ---------------------------------------------------------------------------
 
 
-def _check(name: str, *ts: torch.Tensor) -> None:
+def _check(name: str, x: torch.Tensor,
+           y: Optional[torch.Tensor] = None) -> None:
+    """Raise unless x (and y) are 2-D arrays of one dtype that K9 takes, of
+    one shape with sides below 2^31."""
+    ts = (x,) if y is None else (x, y)
+    if (x.dim() == 2 and x.dtype in DTYPE_CODE
+            and (y is None or (y.dtype is x.dtype and y.shape == x.shape))
+            and max(x.shape) <= _INT32_MAX):
+        return
     for t in ts:
         if t.dim() != 2:
             raise ValueError(f"{name}: 2-D tensors expected, got "
@@ -133,35 +175,29 @@ def _check(name: str, *ts: torch.Tensor) -> None:
                 f"{name}: complex dtypes have no CUDA kernel yet (ROADMAP)")
         if t.dtype not in DTYPE_CODE:
             raise TypeError(f"{name}: unsupported dtype {t.dtype}")
-        if max(t.shape) > _INT32_MAX:
-            raise ValueError(f"{name}: a dimension above 2^31 - 1")
-    if any(t.dtype != ts[0].dtype for t in ts):
+    if y is not None and y.dtype != x.dtype:
         raise TypeError(f"{name}: mixed dtypes {[t.dtype for t in ts]}")
-    if any(t.shape != ts[0].shape for t in ts):
+    if y is not None and y.shape != x.shape:
         raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in ts]}")
-
-
-def _launch(fn_name: str, argtypes: tuple, like: torch.Tensor, *args) -> None:
-    fn = kernel_function(fn_name, argtypes)
-    with torch.cuda.device(like.device):
-        rc = fn(DTYPE_CODE[like.dtype], *args, current_stream(like))
-    check_launch(rc, fn_name)
+    raise ValueError(f"{name}: a dimension above 2^31 - 1")
 
 
 def axpby(alpha, x: torch.Tensor, beta, y: torch.Tensor) -> torch.Tensor:
     """beta y + alpha x. CPU tensors take ``axpby_plain``; CUDA tensors
     launch K9's axpby or raise. ``axpby.launches`` counts launches."""
-    if not on_cuda(x, y):
+    if not (x.is_cuda and y.is_cuda or on_cuda(x, y)):
         return axpby_plain(alpha, x, beta, y)
     _check("axpby", x, y)
-    a = device_scalar(alpha, y.dtype, y.device)
-    b = device_scalar(beta, y.dtype, y.device)
-    out = torch.empty(y.shape, dtype=y.dtype, device=y.device)
-    if out.numel():
-        m, n = y.shape
-        _launch("elx_ew_axpby", _AXPBY_ARGS, y, m, n, a.data_ptr(),
-                x.data_ptr(), x.stride(0), x.stride(1), b.data_ptr(),
-                y.data_ptr(), y.stride(0), y.stride(1), out.data_ptr())
+    ap, av, ak = _scalar(alpha, y)
+    bp, bv, bk = _scalar(beta, y)
+    m, n = y.shape
+    out = torch.empty_like(y, memory_format=torch.contiguous_format)
+    if m and n:
+        sx0, sx1 = x.stride()
+        sy0, sy1 = y.stride()
+        launch(_EW, y, _AXPBY, DTYPE_CODE[y.dtype], m, n, 0, 0, ap, av,
+               x.data_ptr(), sx0, sx1, bp, bv, y.data_ptr(), sy0, sy1,
+               out.data_ptr())
         axpby.launches += 1
     return out
 
@@ -169,15 +205,16 @@ def axpby(alpha, x: torch.Tensor, beta, y: torch.Tensor) -> torch.Tensor:
 def scale(alpha, x: torch.Tensor) -> torch.Tensor:
     """alpha x. CPU tensors take ``scale_plain``; CUDA tensors launch K9's
     scale or raise. ``scale.launches`` counts launches."""
-    if not on_cuda(x):
+    if not (x.is_cuda or on_cuda(x)):
         return scale_plain(alpha, x)
     _check("scale", x)
-    a = device_scalar(alpha, x.dtype, x.device)
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    if out.numel():
-        m, n = x.shape
-        _launch("elx_ew_scale", _SCALE_ARGS, x, m, n, a.data_ptr(),
-                x.data_ptr(), x.stride(0), x.stride(1), out.data_ptr())
+    ap, av, ak = _scalar(alpha, x)
+    m, n = x.shape
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if m and n:
+        sx0, sx1 = x.stride()
+        launch(_EW, x, _SCALE, DTYPE_CODE[x.dtype], m, n, 0, 0, ap, av,
+               x.data_ptr(), sx0, sx1, 0, 0.0, 0, 0, 0, out.data_ptr())
         scale.launches += 1
     return out
 
@@ -185,15 +222,17 @@ def scale(alpha, x: torch.Tensor) -> torch.Tensor:
 def hadamard(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """x * y entrywise. CPU tensors take ``hadamard_plain``; CUDA tensors
     launch K9's hadamard or raise. ``hadamard.launches`` counts launches."""
-    if not on_cuda(x, y):
+    if not (x.is_cuda and y.is_cuda or on_cuda(x, y)):
         return hadamard_plain(x, y)
     _check("hadamard", x, y)
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    if out.numel():
-        m, n = x.shape
-        _launch("elx_ew_hadamard", _HADAMARD_ARGS, x, m, n, x.data_ptr(),
-                x.stride(0), x.stride(1), y.data_ptr(), y.stride(0),
-                y.stride(1), out.data_ptr())
+    m, n = x.shape
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if m and n:
+        sx0, sx1 = x.stride()
+        sy0, sy1 = y.stride()
+        launch(_EW, x, _HADAMARD, DTYPE_CODE[x.dtype], m, n, 0, 0, 0, 0.0,
+               x.data_ptr(), sx0, sx1, 0, 0.0, y.data_ptr(), sy0, sy1,
+               out.data_ptr())
         hadamard.launches += 1
     return out
 
@@ -204,18 +243,19 @@ def fill(shape: Sequence[int], alpha, dtype: torch.dtype, device=None,
     (all of it by default) and 0 elsewhere. A CPU ``device`` takes
     ``fill_plain``; a CUDA one launches K9's fill or raises.
     ``fill.launches`` counts launches."""
-    device = torch.device(device) if device is not None else torch.device(
-        "cpu")
+    if type(device) is not torch.device:
+        device = torch.device(device if device is not None else "cpu")
     if device.type != "cuda":
         return fill_plain(shape, alpha, dtype, device, extent)
     out = torch.empty(tuple(shape), dtype=dtype, device=device)
     _check("fill", out)
     m, n = extent if extent is not None else shape
-    a = device_scalar(alpha, dtype, device)
-    if out.numel():
-        M, N = out.shape
-        _launch("elx_ew_fill", _FILL_ARGS, out, M, N, max(min(m, M), 0),
-                max(min(n, N), 0), a.data_ptr(), out.data_ptr())
+    ap, av, ak = _scalar(alpha, out)
+    M, N = out.shape
+    if M and N:
+        launch(_EW, out, _FILL, DTYPE_CODE[dtype], M, N, max(min(m, M), 0),
+               max(min(n, N), 0), ap, av, 0, 0, 0, 0, 0.0, 0, 0, 0,
+               out.data_ptr())
         fill.launches += 1
     return out
 
@@ -225,14 +265,15 @@ def transpose(x: torch.Tensor, conjugate: bool = False) -> torch.Tensor:
     tensors take ``transpose_plain``; CUDA tensors launch K9's tiled
     transpose or raise (the conjugate of a real tensor is its transpose).
     ``transpose.launches`` counts launches."""
-    if not on_cuda(x):
+    if not (x.is_cuda or on_cuda(x)):
         return transpose_plain(x, conjugate)
     _check("transpose", x)
     m, n = x.shape
     out = torch.empty((n, m), dtype=x.dtype, device=x.device)
-    if out.numel():
-        _launch("elx_ew_transpose", _TRANSPOSE_ARGS, x, m, n, x.data_ptr(),
-                x.stride(0), x.stride(1), out.data_ptr())
+    if m and n:
+        sx0, sx1 = x.stride()
+        launch(_EW, x, _TRANSPOSE, DTYPE_CODE[x.dtype], m, n, 0, 0, 0, 0.0,
+               x.data_ptr(), sx0, sx1, 0, 0.0, 0, 0, 0, out.data_ptr())
         transpose.launches += 1
     return out
 

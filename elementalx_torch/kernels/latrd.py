@@ -4,8 +4,11 @@ Counterpart of ``elementalx/kernels/latrd.py`` (``latrd_panel``, body
 ``_latrd_kernel``). The CUDA kernel is ``csrc/latrd.cu``; its header says
 why the TPU design (V and W transposed in VMEM, a two-slot tile stream)
 does not carry over, what bounds the kernel on the H100 (the symv's
-lower-triangle traffic and four grid-wide barriers per column) and what
-this first design gives up.
+lower-triangle traffic, once per column, and four grid-wide barriers per
+column) and what it gives up. Its symv runs on ``SymvTiles``
+(``csrc/symv_unit.cuh``), K7's "tma" core: the TMA reads ``a`` in place
+when its rows are a multiple of 16 bytes apart, and from a copy with
+padded rows otherwise.
 
 ``latrd_panel(a, k0, w, nb)`` returns ``(P, W, tau)`` with the contract of
 the JAX kernel: columns [k0, k0+w) of the global (M, M) symmetric ``a``
@@ -39,8 +42,8 @@ from .common import (
 #: the widest panel (kMaxNB in csrc/latrd.cu)
 MAX_NB = 128
 
-_ARGTYPES = ((ctypes.c_int,) * 5 + (ctypes.c_void_p,) * 13
-             + (ctypes.c_int, ctypes.c_void_p))
+_ARGTYPES = ((ctypes.c_int,) * 5 + (ctypes.c_void_p, ctypes.c_longlong)
+             + (ctypes.c_void_p,) * 12 + (ctypes.c_int, ctypes.c_void_p))
 
 
 def latrd_panel_plain(a: torch.Tensor, k0: int, w: int, nb: int = MAX_NB
@@ -90,8 +93,15 @@ def latrd_panel(a: torch.Tensor, k0: int, w: int, nb: int = MAX_NB
     if not on_cuda(a):
         return latrd_panel_plain(a, k0, w, nb)
     _check(a, k0, w, nb)
-    a = a.contiguous()
     M = a.shape[0]
+    elem = a.element_size()
+    if (a.stride(1) != 1 or a.stride(0) < M or (a.stride(0) * elem) % 16
+            or a.data_ptr() % 16):
+        # rows 16-byte multiples apart from a 16-byte aligned base, as the
+        # TMA needs
+        lda = -(-M * elem // 16) * 16 // elem
+        a = torch.empty((M, lda), dtype=a.dtype,
+                        device=a.device)[:, :M].copy_(a)
     dev, dt = a.device, a.dtype
     G = cooperative_grid("elx_latrd_grid", a)
     Pt = torch.zeros((nb, M), dtype=dt, device=dev)
@@ -106,7 +116,8 @@ def latrd_panel(a: torch.Tensor, k0: int, w: int, nb: int = MAX_NB
     dots = small[2 * G + 2 * nb * G:]
     fn = kernel_function("elx_latrd_panel", _ARGTYPES)
     with torch.cuda.device(dev):
-        rc = fn(DTYPE_CODE[dt], M, k0, w, nb, a.data_ptr(), Pt.data_ptr(),
+        rc = fn(DTYPE_CODE[dt], M, k0, w, nb, a.data_ptr(), a.stride(0),
+                Pt.data_ptr(),
                 Wt.data_ptr(), Vt.data_ptr(), tau.data_ptr(),
                 vecs[0].data_ptr(), ypart.data_ptr(), vecs[1].data_ptr(),
                 vecs[2].data_ptr(), pnorm.data_ptr(), pdots.data_ptr(),

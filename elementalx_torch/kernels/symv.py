@@ -2,10 +2,20 @@
 
 Counterpart of ``elementalx/kernels/symv.py`` (``symv_lower`` and
 ``symv_lower_trailing``, TPU kernel ``_symv_lower_tpu`` with body
-``_symv_kernel``). The CUDA kernel is ``csrc/symv.cu``, one cooperative
-launch over the lower triangle built from K5's symv unit; its header says
-what bounds it on the H100 (the bytes of the lower triangle) and how it
-sums without float atomics.
+``_symv_kernel``). The CUDA kernels are in ``csrc/symv.cu``, one
+cooperative launch over the lower triangle on one of two cores that
+``route`` picks from dtype and layout alone:
+
+- ``"tma"``: the H100 design (``SymvTiles`` of ``csrc/symv_unit.cuh``,
+  which K5 runs too): 64 x 64 tiles through a TMA ring in shared memory,
+  each used for both of its products. TMA reads A in place when its row
+  stride is a multiple of 16 bytes, at any offset: a slice such as
+  ``a[k0:, k0:]`` is read through a tensor map over the parent's storage;
+- ``"unit"``: the first design, the scalar symv unit, for any other row
+  stride.
+
+The header of ``csrc/symv.cu`` says what bounds them on the H100 (the
+bytes of the lower triangle) and how they sum without float atomics.
 
 ``symv_lower(A, v)`` is ``H @ v`` with ``H = tril(A) + tril(A, -1)^T``:
 only the lower triangle of A is read, so the strict upper triangle may
@@ -27,18 +37,15 @@ import ctypes
 
 import torch
 
-from .common import (
-    DTYPE_CODE,
-    check_launch,
-    cooperative_grid,
-    current_stream,
-    kernel_function,
-    on_cuda,
-)
+from .common import DTYPE_CODE, Entry, cooperative_grid, launch, on_cuda
+from .common import raw_stream
 
-_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p)
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_UNIT = Entry("elx_symv_lower", (_I, _I, _P, _L, _P, _P, _P, _I, _P))
+_TMA = Entry("elx_symv_lower_tma", (_I, _I, _P, _I, _L, _P, _P, _P, _I, _P))
+
+#: the cores and the C entry that sizes each one's grid
+CORES = {"tma": "elx_symv_tma_grid", "unit": "elx_symv_grid"}
 
 
 def symv_lower_plain(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -63,35 +70,87 @@ def _check(A: torch.Tensor, v: torch.Tensor) -> None:
                         f"{v.dtype}")
 
 
-def symv_lower(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """y = H v from the lower triangle of A. CPU tensors take
-    ``symv_lower_plain``; CUDA tensors launch the K7 kernel or raise.
-    ``symv_lower.launches`` counts kernel launches (those of
-    ``symv_lower_trailing`` included)."""
-    if not on_cuda(A, v):
-        return symv_lower_plain(A, v)
-    _check(A, v)
+def _readable(A: torch.Tensor) -> bool:
+    """A is read in place: unit column stride, rows at least n apart."""
+    return A.stride(1) == 1 and A.stride(0) >= A.shape[0]
+
+
+def route(A: torch.Tensor) -> str:
+    """The K7 core a CUDA call on A takes, by dtype and layout alone:
+    ``"tma"`` when the row stride of the matrix the kernel reads (A in
+    place, or its contiguous copy when A's columns are not unit-stride) is
+    a multiple of 16 bytes, else ``"unit"``. The base's alignment does not
+    matter: the tensor map starts at the 16-byte boundary at or before
+    A's first element. No device is needed: the CPU tests check it."""
+    lda = A.stride(0) if _readable(A) else A.shape[0]
+    return "tma" if (lda * A.element_size()) % 16 == 0 else "unit"
+
+
+#: ypart scratch per (device index, dtype, stream): every block of either
+#: core zeroes its own partial before use, so calls on one stream may
+#: share it
+_WORKSPACE: dict = {}
+
+
+def _workspace(A: torch.Tensor, G: int, n: int, stream: int) -> torch.Tensor:
+    key = (A.get_device(), A.dtype, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws.numel() < G * n:
+        ws = _WORKSPACE[key] = torch.empty((G * n,), dtype=A.dtype,
+                                           device=A.device)
+    return ws
+
+
+def _launch(core: str, A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Launch K7's ``core`` on CUDA A (read in place) and v; return y.
+    Counts nothing (a test may hold the cores against each other)."""
     n = A.shape[0]
-    if A.stride(1) != 1 or A.stride(0) < n:
-        A = A.contiguous()
-    v = v.contiguous()
-    dev, dt = A.device, A.dtype
-    y = torch.empty((n,), dtype=dt, device=dev)
+    y = torch.empty((n,), dtype=A.dtype, device=A.device)
     if n == 0:
         return y
-    G = cooperative_grid("elx_symv_grid", A)
-    ypart = torch.empty((G, n), dtype=dt, device=dev)
-    fn = kernel_function("elx_symv_lower", _ARGTYPES)
-    with torch.cuda.device(dev):
-        rc = fn(DTYPE_CODE[dt], n, A.data_ptr(), A.stride(0),
-                v.data_ptr(), y.data_ptr(), ypart.data_ptr(), G,
-                current_stream(A))
-    check_launch(rc, "elx_symv_lower")
-    symv_lower.launches += 1
+    G = cooperative_grid(CORES[core], A)
+    ws = _workspace(A, G, n, raw_stream(A))
+    if core == "tma":
+        elem = A.element_size()
+        ptr = A.data_ptr()
+        c0 = (ptr % 16) // elem
+        launch(_TMA, A, DTYPE_CODE[A.dtype], n, ptr - c0 * elem, c0,
+               A.stride(0), v.data_ptr(), y.data_ptr(), ws.data_ptr(), G)
+    else:
+        launch(_UNIT, A, DTYPE_CODE[A.dtype], n, A.data_ptr(), A.stride(0),
+               v.data_ptr(), y.data_ptr(), ws.data_ptr(), G)
     return y
 
 
-symv_lower.launches = 0
+def symv_lower(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """y = H v from the lower triangle of A. CPU tensors take
+    ``symv_lower_plain``; CUDA tensors launch the K7 kernel of
+    ``route(A)`` or raise. ``symv_lower.launches_<core>`` counts each
+    core's launches, ``symv_lower.launches`` all of them (those of
+    ``symv_lower_trailing`` included; ``reset_launches`` zeroes them)."""
+    if not on_cuda(A, v):
+        return symv_lower_plain(A, v)
+    _check(A, v)
+    if not _readable(A):
+        A = A.contiguous()
+    v = v.contiguous()
+    core = route(A)
+    y = _launch(core, A, v)
+    if A.shape[0]:
+        symv_lower.launches += 1
+        name = f"launches_{core}"
+        setattr(symv_lower, name, getattr(symv_lower, name) + 1)
+    return y
+
+
+def reset_launches() -> None:
+    """Zero K7's launch counts (both cores)."""
+    symv_lower.launches = 0
+    for core in CORES:
+        setattr(symv_lower, f"launches_{core}", 0)
+
+
+reset_launches()
 
 
 def symv_lower_trailing(a: torch.Tensor, v: torch.Tensor,

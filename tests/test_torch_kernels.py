@@ -695,6 +695,51 @@ def test_new_kernels_cpu_tensors_count_nothing():
             potrf_panel_tail_full.launches, symv_lower.launches) == before
 
 
+def _f32(rows, cols, dtype=torch.float32):
+    return torch.zeros((rows, cols), dtype=dtype)
+
+
+@pytest.mark.parametrize("matrix,core", [
+    (lambda: _f32(1024, 1024), "tma"),
+    (lambda: _f32(1024, 1024)[37:, 37:], "tma"),
+    (lambda: _f32(1024, 1024)[1:, 1:], "tma"),
+    (lambda: _f32(16384, 16384)[5000:, 5000:], "tma"),
+    (lambda: _f32(1000, 1004)[:, :1000], "tma"),
+    (lambda: _f32(1000, 1001)[:, :1000], "unit"),
+    (lambda: _f32(1000, 1002)[:, :1000], "unit"),
+    (lambda: _f32(1001, 1001), "unit"),
+    (lambda: _f32(1001, 1001)[1:, 1:], "unit"),
+    (lambda: _f32(1000, 1000).mT, "tma"),
+    (lambda: _f32(1001, 1001).mT, "unit"),
+    (lambda: _f32(1000, 1002, torch.float64)[:, :1000], "tma"),
+    (lambda: _f32(1001, 1001, torch.float64), "unit"),
+    (lambda: _f32(1000, 1000, torch.float64)[37:, 37:], "tma"),
+], ids=["f32-contiguous", "f32-k0-37", "f32-k0-1", "f32-k0-5000",
+        "f32-stride-1004", "f32-stride-1001", "f32-stride-1002",
+        "f32-order-1001", "f32-order-1001-k0-1", "f32-mT-copy",
+        "f32-mT-copy-1001", "f64-stride-1002", "f64-order-1001",
+        "f64-k0-37"])
+def test_symv_route(matrix, core):
+    """K7's core follows from dtype and layout alone: a row stride (of A in
+    place, or of its contiguous copy when A's columns are not unit-stride)
+    that is a multiple of 16 bytes takes the TMA tiles at any offset
+    (the tensor map starts at the 16-byte boundary before A), any other
+    the scalar unit."""
+    from elementalx_torch.kernels.symv import route
+
+    assert route(matrix()) == core
+
+
+def test_symv_counters_by_core_and_cpu_counts_nothing():
+    from elementalx_torch.kernels.symv import CORES, reset_launches
+
+    reset_launches()
+    a = torch.eye(8)
+    symv_lower(a, a[0])
+    assert symv_lower.launches == 0
+    assert all(getattr(symv_lower, f"launches_{c}") == 0 for c in CORES)
+
+
 # ---------------------------------------------------------------------------
 # K9 on the CPU: the plain versions against the JAX Pallas kernels
 # ---------------------------------------------------------------------------
@@ -782,6 +827,60 @@ def test_elementwise_cpu_tensors_count_nothing():
     transpose(a)
     assert (axpby.launches, scale.launches, hadamard.launches,
             fill.launches, transpose.launches) == before
+
+
+_ROUNDING_CASES = {
+    "tie-f32": 1 + 2 ** -24,          # halfway between two float32 values
+    "tie-bf16": 1 + 2 ** -8,          # halfway between two bfloat16 values
+    "tie-bf16-odd": 1 + 3 * 2 ** -8,  # the tie rounds up to even
+    "double-rounding": 1 + 2 ** -8 + 2 ** -30,  # float32 first makes a tie
+    "0.3": 0.3,
+    "1/3": 1 / 3,
+    "-1.7": -1.7,
+    "subnormal-f32": 1e-40,
+    "subnormal-tiny": 1e-45,
+    "subnormal-f64": 5e-324,
+    "negative-zero": -0.0,
+    "max-bf16": 3.39e38,
+    "rounds-to-inf-bf16": 3.4e38,
+    "inf": float("inf"),
+    "-inf": float("-inf"),
+    "nan": float("nan"),
+    "int": 3,
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("value", list(_ROUNDING_CASES.values()),
+                         ids=list(_ROUNDING_CASES))
+def test_k9_host_scalar_rounds_as_torch_full(dtype, value):
+    """A Python-number alpha or beta goes to K9 by value, rounded on the
+    host: it must equal what torch.full((), value, dtype=dtype) holds (the
+    device scalar of the plain versions), bit for bit, NaN as NaN."""
+    from elementalx_torch.kernels.elementwise import host_scalar
+
+    ref = torch.full((), value, dtype=dtype)
+    got = torch.tensor(host_scalar(value, dtype), dtype=torch.float64)
+    got = got.to(dtype)
+    if torch.isnan(ref):
+        assert torch.isnan(got)
+    else:
+        bits = {torch.float32: torch.int32, torch.float64: torch.int64,
+                torch.bfloat16: torch.int16}[dtype]
+        assert got.view(bits).item() == ref.view(bits).item()
+
+
+def test_k9_host_scalar_overflow_raises_as_torch_full():
+    """float32 refuses a finite value beyond its range, as torch.full does;
+    bfloat16 rounds it to inf, as torch.full does."""
+    from elementalx_torch.kernels.elementwise import host_scalar
+
+    with pytest.raises(RuntimeError):
+        torch.full((), 1e300, dtype=torch.float32)
+    with pytest.raises(RuntimeError):
+        host_scalar(1e300, torch.float32)
+    assert host_scalar(1e300, torch.bfloat16) == float("inf")
 
 
 def test_gemm_orient_is_a_view_and_transpose_copies():
@@ -1140,6 +1239,32 @@ def test_latrd_kernel_vs_plain(cuda, M, k0, w, dt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M,k0,w,dt", [
+    (8192, 0, 128, torch.float32), (8192, 4096, 128, torch.float32),
+    (1000, 37, 100, torch.float32), (2048, 0, 128, torch.float64),
+    (1001, 3, 64, torch.float32), (999, 1, 50, torch.float64),
+])
+def test_latrd_on_symv_tiles_at_path_shapes(cuda, M, k0, w, dt):
+    """K5 at chip_smoke's phase-7 shapes (its symv on K7's TMA tiles), and
+    at orders whose rows are not 16-byte multiples apart (read from a copy
+    with padded rows): P, W and tau within 1e-4 (float32: symvs over up to
+    8192 terms in another order, compounded over 128 columns) / 1e-10
+    (float64) of max|plain|, and the same bits on a second run."""
+    g = torch.Generator(device=cuda).manual_seed(42)
+    x = torch.randn((M, M), generator=g, device=cuda, dtype=torch.float64)
+    a = ((x + x.mT) / 2).to(dt)
+    del x
+    out = latrd_panel(a, k0, w, 128)
+    again = latrd_panel(a, k0, w, 128)
+    ref = latrd_panel_plain(a, k0, w, 128)
+    torch.cuda.synchronize()
+    rtol = 1e-4 if dt == torch.float32 else 1e-10
+    for o, o2, r in zip(out, again, ref):
+        assert (o - r).abs().max().item() <= rtol * r.abs().max().item()
+        assert torch.equal(o, o2)
+
+
+@pytest.mark.cuda
 def test_hermitian_tridiag_wide_blocksize_on_card(cuda):
     """HermitianTridiag at blocksize 256 on the card: every panel is a K5
     launch at K5's widest panel (128), so d and e equal the run at
@@ -1382,6 +1507,65 @@ def test_symv_kernel_vs_plain(cuda, n, dt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,k0,pad,dt", [
+    (1, 0, 0, torch.float32), (1, 0, 3, torch.float32),
+    (31, 0, 0, torch.float32), (31, 0, 1, torch.float32),
+    (1000, 0, 0, torch.float32), (1025, 0, 0, torch.float32),
+    (1025, 37, 0, torch.float32), (16384, 0, 0, torch.float32),
+    (16384, 5000, 0, torch.float32), (16384, 37, 0, torch.float32),
+    (1000, 37, 4, torch.float32), (1000, 0, 1, torch.float32),
+    (1025, 37, 3, torch.float32), (1025, 0, 1, torch.float64),
+    (1024, 37, 0, torch.float64), (1000, 5, 1, torch.float64),
+])
+def test_symv_cores_vs_plain(cuda, n, k0, pad, dt):
+    """K7 on the trailing block a[k0:, k0:] of an n x (n + pad) buffer with
+    NaN above the diagonal, on the core route() picks (TMA tiles for a row
+    stride of 16-byte multiples, the scalar unit otherwise), against the
+    plain version on the clean matrix: 1e-5 (float32, sums of n terms in
+    another order) or 1e-12 (float64) of max|y|; NaN never reaches y; a
+    second run gives the same bits; the launch is counted on its core."""
+    from elementalx_torch.kernels.symv import route
+
+    g = torch.Generator(device=cuda).manual_seed(40)
+    buf = torch.randn((n, n + pad), generator=g, device=cuda).to(dt)
+    A = buf[:, :n]
+    v = torch.randn((n - k0,), generator=g, device=cuda).to(dt)
+    ref = symv_lower_plain(A[k0:, k0:], v)
+    iu = torch.triu_indices(n, n, 1, device=cuda)
+    A[iu[0], iu[1]] = float("nan")
+    del iu
+    core = route(A[k0:, k0:])
+    assert core == ("tma" if (n + pad) * buf.element_size() % 16 == 0
+                    else "unit")
+    before = getattr(symv_lower, f"launches_{core}")
+    y = symv_lower_trailing(A, v, k0)
+    y2 = symv_lower_trailing(A, v, k0)
+    torch.cuda.synchronize()
+    assert getattr(symv_lower, f"launches_{core}") == before + 2
+    rtol = 1e-5 if dt == torch.float32 else 1e-12
+    assert bool(torch.isfinite(y).all())
+    assert (y - ref).abs().max().item() <= rtol * ref.abs().max().item()
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+def test_symv_tma_core_equals_itself_across_calls_and_workspace(cuda):
+    """The TMA core's cached partial-y workspace is reused from call to
+    call: a call at a larger order and then at a smaller one again gives
+    the same bits as before."""
+    from elementalx_torch.kernels.symv import _launch
+
+    g = torch.Generator(device=cuda).manual_seed(41)
+    A = torch.randn((3000, 3000), generator=g, device=cuda)
+    v = torch.randn((3000,), generator=g, device=cuda)
+    y1 = _launch("tma", A[:1000, :1000], v[:1000])
+    _launch("tma", A, v)
+    y2 = _launch("tma", A[:1000, :1000], v[:1000])
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.cuda
 def test_symv_kernel_refuses_complex(cuda):
     z = torch.ones((4, 4), dtype=torch.complex64, device=cuda)
     with pytest.raises(NotImplementedError):
@@ -1491,6 +1675,56 @@ def test_elementwise_kernels_refuse_complex_and_mixed_types(cuda):
             call()
     with pytest.raises(TypeError):
         axpby(1.0, f.double(), 1.0, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha_kind", ["number", "tensor"])
+def test_elementwise_bf16_scalars_bit_for_bit(cuda, alpha_kind):
+    """bfloat16 axpby, scale and fill with alpha = 0.3 (rounded to
+    bfloat16 on the host, as torch.full does) or a float64 tensor alpha on
+    the card (cast there), equal to their plain versions bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(43)
+    x = torch.randn((257, 129), generator=g, device=cuda).bfloat16()
+    y = torch.randn((257, 129), generator=g, device=cuda).bfloat16()
+    alpha = 0.3 if alpha_kind == "number" else torch.tensor(
+        0.3, dtype=torch.float64, device=cuda)
+    pairs = [(axpby(alpha, x, -1.7, y), axpby_plain(alpha, x, -1.7, y)),
+             (axpby(alpha, x, 1.0, y), axpby_plain(alpha, x, 1.0, y)),
+             (scale(alpha, x), scale_plain(alpha, x)),
+             (fill((257, 129), alpha, torch.bfloat16, cuda),
+              fill_plain((257, 129), alpha, torch.bfloat16, cuda))]
+    torch.cuda.synchronize()
+    for out, ref in pairs:
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_elementwise_number_scalars_launch_one_kernel(cuda):
+    """With Python-number scalars each K9 call runs exactly one device
+    kernel (the scalars go by value): torch.profiler sees at most one a
+    call, every one the entry's own kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones((1024, 256), device=cuda)
+    y = torch.ones((1024, 256), device=cuda)
+    calls = (lambda: axpby(0.3, x, -1.7, y), lambda: scale(0.3, x),
+             lambda: hadamard(x, y),
+             lambda: fill((1024, 256), 0.3, torch.float32, cuda),
+             lambda: transpose(x))
+    for call, name in zip(calls, ("ew_flat_kernel",) * 4
+                          + ("transpose_kernel",)):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        # the profiler may miss the first launches of a window, never add
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert 0 < len(kernels) <= 5, kernels
+        assert all(name in k for k in kernels), kernels
 
 
 @pytest.mark.cuda
