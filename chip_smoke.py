@@ -19,23 +19,40 @@ Phases (each raises on failure, so the script exits non-zero):
      with the scaled residual checked in float64 and the kernels' launch
      counts read around the run; and a small float64 run held against the
      same step on the CPU (plain versions);
-  5. K4 (pivoted LU panel) against its plain version at the LU path's
-     sub-panel shapes, checked in float64 (P A = L U, |L| <= 1, identical
-     float64 pivots);
+  5. the cost of a grid.sync(), a cluster barrier and a cluster barrier
+     with a DSMEM read (kernels/sync_probe.py); K4 (pivoted LU panel)
+     against its plain version at the LU path's sub-panel shapes and in
+     float64, each on the route ``k4_route`` gives it (float64 at
+     16384 x 512: the grid route), checked in float64 (P A = L U,
+     |L| <= 1, identical float64 pivots), with its roofline bound and its
+     chain floor (a column a barrier and a DSMEM read); where the cluster
+     route runs, the grid route gives the same bits and runs in turns with
+     it; then K4 at each of the LU path's 32 sub-panel heights;
   6. the LU slice: ``linear_solve_step`` at n=16384, nrhs=256, float32,
-     gated on the scaled backward error and the kernels' launch counts,
-     and a small float64 run held against the same step on the CPU;
+     gated on the scaled backward error and the kernels' launch counts
+     (every K4 panel on the cluster route), and a small float64 run held
+     against the same step on the CPU (a torch.profiler trace of one warm
+     step, K4's share of the device time and the idle share, runs after
+     phase 12);
   7. K5 (latrd panel) and K6 (bulge chase) against their plain versions:
      K5 at the HermitianEig path's panels (M=8192, k0=0 and 4096), a
-     ragged panel and a float64 one, each against its bound (the trailing
-     triangle streamed once per column; a triangle that fits in the 50 MB
-     L2 is marked so); K6 at n=8192 with b=256 and b=128
-     and at n=1000 with b=16, through the spectrum of (d, e) and the
-     orthogonality of Q2, and in float64 entry by entry;
+     ragged panel and a float64 one, each against its bound (each byte
+     once) and the floor of its algorithm (the trailing triangle streamed
+     once per column; a triangle that fits in the 50 MB L2 is marked so);
+     K6 at n=8192 with b=256 and b=128 and at n=1000
+     with b=16, each on the route ``k6_route`` gives it, kernel and plain
+     in turns (kernel, plain, kernel; the two kernel runs the same bits),
+     through the spectrum of (d, e) and the orthogonality of Q2, with its
+     roofline bound and its chain floor, the l2 route (the first design)
+     in turns with the cluster route at n=8192; and in float64 entry by
+     entry;
   8. the HermitianEig slice: ``hermitian_eig_step`` at n=8192, float32,
-     through the latrd path (K5) and the SBR path (K6), each run twice,
-     gated on the scaled residual, the orthogonality and the launch
-     counts, with its stages timed once; and a small float64 run held
+     through the latrd path (K5) and the SBR path (K6 on the cluster
+     route), each run twice, gated on the scaled residual, the
+     orthogonality and the launch counts, with its stages timed once;
+     tridiagonalization plus backtransform at n = 1024 to 8192 through
+     latrd, SBR b=256 and SBR b=128, best of three (the table the
+     HermitianEig default comes from); and a small float64 run held
      against the same step on the CPU;
   9. K2 (masked rank-k update), K3b/K3c (fused panel tail) and K7
      (lower-triangle symv) against their plain versions at the level-3,
@@ -158,7 +175,11 @@ def main() -> None:
     )
     from elementalx_torch.kernels import common
     from elementalx_torch.kernels import elementwise as k9
+    from elementalx_torch.kernels.getrf import _launch as k4_launch
+    from elementalx_torch.kernels.getrf import cluster_ctas as k4_ctas
     from elementalx_torch.kernels.getrf import getrf_panel, getrf_panel_plain
+    from elementalx_torch.kernels.getrf import reset_launches as k4_reset
+    from elementalx_torch.kernels.getrf import route as k4_route
     from elementalx_torch.kernels.latrd import latrd_panel, latrd_panel_plain
     from elementalx_torch.kernels.matmul import CORES as K1_CORES
     from elementalx_torch.kernels.matmul import matmul, matmul_plain
@@ -180,8 +201,14 @@ def main() -> None:
         ring_summa_kernel,
         ring_summa_plain,
     )
+    from elementalx_torch.kernels.sb2tr import _launch as k6_launch
+    from elementalx_torch.kernels.sb2tr import chain_ops as k6_chain_ops
+    from elementalx_torch.kernels.sb2tr import cluster_size as k6_ctas
+    from elementalx_torch.kernels.sb2tr import reset_launches as k6_reset
+    from elementalx_torch.kernels.sb2tr import route as k6_route
     from elementalx_torch.kernels.sb2tr import sb2tr, sb2tr_plain
     from elementalx_torch.kernels.symv import CORES as K7_CORES
+    from elementalx_torch.kernels.sync_probe import step_us as sync_step_us
     from elementalx_torch.kernels.symv import _launch as k7_launch
     from elementalx_torch.kernels.symv import reset_launches as k7_reset
     from elementalx_torch.kernels.symv import route as k7_route
@@ -195,10 +222,15 @@ def main() -> None:
         masked_rank_k_plain,
     )
     from elementalx_torch.lapack import condense, qr, sbr, tridiag_eig
-    from elementalx_torch.lapack.hermitian_eig import HermitianEigCtrl
+    from elementalx_torch.lapack.hermitian_eig import (
+        SBR_AUTO_BAND,
+        SBR_AUTO_MIN_N,
+        HermitianEigCtrl,
+    )
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
+    sbr_auto = (SBR_AUTO_BAND, SBR_AUTO_MIN_N)
 
     def time_ms(fn, iters):
         fn()
@@ -429,11 +461,39 @@ def main() -> None:
     # multipliers of at most 1 and a growth factor near 1 (float32, w=512:
     # 6.1e-5); |L| <= 1 + w eps. float64 pivots must equal the plain
     # version's; float32 ones may differ on near-ties and are counted.
+    # Each shape runs on the route k4_route gives it (the cluster route:
+    # one thread-block cluster, one cluster barrier a column; the grid
+    # route: one grid.sync() a column) and must launch it. Where the
+    # cluster route runs, the grid route (the first design) gives the same
+    # bits and is timed in turns with it. The chain floor: w columns x the
+    # step the route repeats a column, from kernels/sync_probe.py (a
+    # cluster barrier and a DSMEM read at the cluster's size; a grid.sync
+    # over 132 CTAs).
+    sync_us = {c: sync_step_us("cluster barrier + DSMEM read", c)
+               for c in (1, 2, 4, 8, 16)}
+    bar_us = {c: sync_step_us("cluster barrier", c) for c in (1, 2, 4, 8, 16)}
+    gsync_us = sync_step_us("grid.sync", 132)
+    print(f"synchronisation steps (kernels/sync_probe.py): grid.sync over "
+          f"132 CTAs {gsync_us:.3f} us; cluster barrier "
+          + ", ".join(f"{c} CTAs {t:.3f} us" for c, t in bar_us.items())
+          + "; barrier + DSMEM read "
+          + ", ".join(f"{c} CTAs {t:.3f} us" for c, t in sync_us.items()))
+
+    def k4_floor(Mt, w, dt):
+        c = k4_ctas(Mt, dt)
+        return w * (sync_us[c] if c else gsync_us) / 1e3
+
     k4_main = None
     for Mt, w, dt in ((16384, 512, torch.float32), (8192, 512, torch.float32),
-                      (1000, 200, torch.float32), (4096, 512, torch.float64)):
+                      (1000, 200, torch.float32), (4096, 512, torch.float64),
+                      (16384, 512, torch.float64)):
         a = randn(Mt, w, dtype=torch.float64).to(dt)
+        rt = k4_route(Mt, dt)
+        k4_reset()
         out, piv = getrf_panel(a)
+        require(getattr(getrf_panel, f"launches_{rt}") == 1
+                and getrf_panel.launches == 1,
+                f"K4 ({Mt},{w}) {dt}: not one launch on the {rt} route")
         ref, ref_piv = getrf_panel_plain(a)
         sync()
         lperm = torch.cat([piv, torch.nonzero(torch.isin(
@@ -460,16 +520,43 @@ def main() -> None:
         err = (out.double() - ref.double()).abs().max().item()
         ms, plain_ms = time_pair(lambda: getrf_panel(a),
                                  lambda: getrf_panel_plain(a), 5)
-        print(f"K4 ({Mt},{w}) {str(dt)[6:]}: max|PA-LU| {resid:.3e} "
+        turns = ""
+        if rt == "cluster":
+            og, pg = k4_launch("grid", a)
+            sync()
+            require(torch.equal(og, out) and torch.equal(pg, piv),
+                    f"K4 ({Mt},{w}) {dt}: the cluster and grid routes "
+                    "differ")
+            c_ms, g_ms = time_pair(lambda: k4_launch("cluster", a),
+                                   lambda: k4_launch("grid", a), 5)
+            turns = (f"; in turns: cluster route {c_ms:.4f} ms, grid route "
+                     f"(the first design) {g_ms:.4f} ms, the same bits")
+        flops, nbytes = Mt * w * w - w ** 3 / 3, dt.itemsize * 2 * Mt * w
+        bound = roofline(flops, nbytes)
+        print(f"K4 ({Mt},{w}) {str(dt)[6:]} {rt} route "
+              f"({k4_ctas(Mt, dt)} CTAs): max|PA-LU| {resid:.3e} "
               f"(tol {tol:.2e} x {scale:.3f}), max|L| {lmax:.6f}, "
               f"{ndiff} pivots differ, max|out-plain| {err:.3e}  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+              f"{bound[0]:.4f} ms ({bound[1]})  chain floor "
+              f"{k4_floor(Mt, w, dt):.4f} ms" + turns)
         if k4_main is None:
             lib_ms = time_ms(lambda: torch.linalg.lu_factor_ex(a), 5)
-            k4_main = (err, ms, plain_ms, lib_ms,
-                       roofline(Mt * w * w - w ** 3 / 3,
-                             dt.itemsize * 2 * Mt * w))
+            k4_main = (err, ms, plain_ms, lib_ms, bound)
         del a, out, ref, packed, L, U, ad
+    # the LU path's sub-panels at n=16384: (16384 - k0, 512), k0 = 0, 512,
+    # ...; each on its route, beside its chain floor
+    a = randn(16384, 512)
+    parts = []
+    for Mt in range(16384, 0, -512):
+        sub = a[16384 - Mt:]
+        ms = time_ms(lambda: getrf_panel(sub), 3)
+        parts.append(f"{Mt}: {k4_route(Mt, sub.dtype)} "
+                     f"{k4_ctas(Mt, sub.dtype)} CTAs {ms:.4f} ms, floor "
+                     f"{k4_floor(Mt, 512, sub.dtype):.4f}")
+    print("K4 at the LU path's sub-panel heights (Mt: route, ms, chain "
+          "floor ms): " + "; ".join(parts))
+    del a, sub
 
     # ---- 6. the LU slice ----
     a, b = make_lu_problem(300, 5, dtype=torch.float64, device=dev)
@@ -483,7 +570,7 @@ def main() -> None:
     a, b = make_lu_problem(n, nrhs, dtype=torch.float32, device=dev)
     sync()
     k1_reset()
-    getrf_panel.launches = 0
+    k4_reset()
     k9_reset()
     t0 = time.perf_counter()
     x, nrm = linear_solve_step(a, b)
@@ -491,6 +578,8 @@ def main() -> None:
     first_ms = (time.perf_counter() - t0) * 1e3
     lu_launches = {"K1": matmul.launches, "K1 cores": k1_counts(),
                    "K4": getrf_panel.launches,
+                   "K4 routes": {r: getattr(getrf_panel, f"launches_{r}")
+                                 for r in ("cluster", "grid")},
                    "K9": k9_counts()}
     t0 = time.perf_counter()
     linear_solve_step(a, b)
@@ -507,6 +596,9 @@ def main() -> None:
     require(berr < 100, f"LU slice: scaled backward error {berr} >= 100")
     require(lu_launches["K1"] > 0 and lu_launches["K4"] > 0,
             f"the LU path did not launch every kernel: {lu_launches}")
+    require(lu_launches["K4 routes"]["cluster"] == lu_launches["K4"],
+            f"a K4 panel of the LU path left the cluster route: "
+            f"{lu_launches}")
     require(lu_launches["K9"]["transpose"] == 0,
             f"a K9 transpose on the LU path: {lu_launches}")
     del ad, xd, bd, r
@@ -563,24 +655,29 @@ def main() -> None:
               f"{errs[2]:.3e} (rtol {rtol}), max|(|[1;v]|^2 tau - 2)| "
               f"{unit:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
         # per column j: the symv over the trailing order m_j = m0 - j - 1
-        # (2 m_j^2) and the V/W corrections (8 m_j j). Column j + 1's symv
-        # needs column j's reflector, so every column streams its trailing
-        # lower triangle again (m_j (m_j + 1) / 2 words); P and W are
-        # written once. A triangle that fits in the 50 MB L2 comes back
-        # from there after the first column: the HBM bound does not bind.
+        # (2 m_j^2) and the V/W corrections (8 m_j j). The bound: those
+        # operations, and each byte read once (the trailing lower
+        # triangle, m0 (m0 + 1) / 2 words) and P and W written once.
+        # Beside it the floor of K5's algorithm:
+        # column j + 1's symv needs column j's reflector, so every column
+        # streams its trailing triangle again (m_j (m_j + 1) / 2 words);
+        # a triangle that fits in the 50 MB L2 comes back from there
+        # after the first column, so that floor does not bind on HBM.
         m0 = M - k0
         esz = a.element_size()
         fl = sum(2 * (m0 - j - 1) ** 2 + 8 * (m0 - j - 1) * j
                  for j in range(w))
         tri = sum((m0 - j - 1) * (m0 - j) / 2 for j in range(w))
-        bound = roofline(fl, esz * (tri + 2 * m0 * w))
+        bound = roofline(fl, esz * (m0 * (m0 + 1) / 2 + 2 * m0 * w))
+        stream = roofline(fl, esz * (tri + 2 * m0 * w))
         in_l2 = esz * m0 * (m0 + 1) / 2 <= L2_BYTES
         print(f"K5 ({M},{k0},{w}) {str(dt)[6:]}: bound {bound[0]:.4f} ms "
-              f"(by {bound[1]}: {esz * tri / 1e9:.2f} GB, the trailing "
-              f"triangle once a column), kernel at "
-              f"{bound[0] / ms:.1%} of it"
-              + ("; the triangle fits in the 50 MB L2, so the HBM bound "
-                 "does not bind" if in_l2 else ""))
+              f"(by {bound[1]}), kernel at {bound[0] / ms:.1%} of it; the "
+              f"algorithm's floor {stream[0]:.4f} ms (by {stream[1]}: "
+              f"{esz * tri / 1e9:.2f} GB, the trailing triangle once a "
+              f"column), kernel at {stream[0] / ms:.1%} of it"
+              + ("; the triangle fits in the 50 MB L2, so that floor does "
+                 "not bind" if in_l2 else ""))
         if k5_main is None:
             k5_main = (max(errs), ms, plain_ms, bound)
             # the whole reduction of order M: every column j < M - 2
@@ -613,51 +710,83 @@ def main() -> None:
         return torch.linalg.eigvalsh(T)
 
     # The plain chase is one op at a time (about 0.4 ms an op): 51 s at
-    # n=8192, b=256, 101 s at b=128 (NVIDIA H100 80GB HBM3, 700 W). It
-    # runs once at the path's default band and is left out at b=128,
-    # where only the kernel is held to the spectrum and Q2.
+    # n=8192, b=256, 101 s at b=128 (NVIDIA H100 80GB HBM3, 700 W). Each
+    # shape runs on the route k6_route gives it and must launch it; the
+    # kernel runs before and after the one plain run (kernel, plain,
+    # kernel). At n=8192 the l2 route (the first design) runs in turns
+    # with the cluster route (cluster, l2, l2, cluster) and is held to the
+    # same spectrum. Beside the roofline bound (the band read once, 8 b^2
+    # operations an op) stands the chain floor: the ops on the critical
+    # path at the kernel's lag of two (k6_chain_ops) x the least time of
+    # one op on the C SMs of its cluster, the larger of its 8 b^2 FP32
+    # operations at C/132 of the card's peak and its three cluster
+    # barriers (kernels/sync_probe.py).
+    def k6_floor(m, b):
+        c = k6_ctas(b, torch.float32)
+        op_us = max(8 * b * b / (c * PEAK_FP32 / 132) * 1e6,
+                    3 * bar_us[c])
+        return k6_chain_ops(m, b, 2) * op_us / 1e3, op_us
+
     k6_main = None
     eps32 = torch.finfo(torch.float32).eps
-    for m, b, with_plain in ((8192, 256, True), (8192, 128, False),
-                             (1000, 16, True)):
+    for m, b in ((8192, 256), (8192, 128), (1000, 16)):
         ab = band(m, b, torch.float32)
         ev = torch.linalg.eigvalsh(ab.double())
         wmax = ev.abs().max().item()
         bound = 100 * m * eps32 * wmax
-        ks = []
-        for _ in range(2):
+        rt = k6_route(b, torch.float32)
+
+        def run_k6():
             sync()
             t0 = time.perf_counter()
-            v, d, e = sb2tr(ab, b)
+            out = sb2tr(ab, b)
             sync()
-            ks.append((time.perf_counter() - t0) * 1e3)
+            return out, (time.perf_counter() - t0) * 1e3
+
+        k6_reset()
+        (v, d, e), k_first = run_k6()
+        require(getattr(sb2tr, f"launches_{rt}") == 1
+                and sb2tr.launches == 1,
+                f"K6 n={m} b={b}: not one launch on the {rt} route")
         wk = spectrum(d, e)
         errk = (wk - ev).abs().max().item()
         require(errk <= bound, f"K6 n={m} b={b}: spectrum error {errk} > "
                                f"{bound}")
-        plain = "plain not run"
-        if with_plain:
-            t0 = time.perf_counter()
-            _, dp, ep = sb2tr_plain(ab, b)
-            sync()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            wp = spectrum(dp, ep)
-            errp = (wp - ev).abs().max().item()
-            errkp = (wk - wp).abs().max().item()
-            require(errp <= bound, f"K6 n={m} b={b}: the plain chase's "
-                                   f"spectrum error {errp} > {bound}")
-            require(errkp <= 1e-4 * wmax, f"K6 n={m} b={b}: kernel and "
-                                          f"plain spectra {errkp} apart")
-            plain = (f"plain {plain_ms:.1f} ms (one run), its spectrum error "
-                     f"{errp:.3e}, kernel vs plain spectra {errkp:.3e}")
-            if k6_main is None:
-                # about n^2 / (2b) ops of 8 b^2 operations each (the
-                # two-sided update of a b x b block and the one-sided one
-                # of the block below it); the band read once, vout, d
-                # and e written once
-                k6_main = (errkp, (ks[0] + ks[1]) / 2, plain_ms,
-                           roofline(4 * m * m * b,
-                                    4 * (2 * m * (b + 1) + 2 * m)))
+        t0 = time.perf_counter()
+        _, dp, ep = sb2tr_plain(ab, b)
+        sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        (v2, d2, e2), k_second = run_k6()
+        require(torch.equal(v, v2) and torch.equal(d, d2)
+                and torch.equal(e, e2),
+                f"K6 n={m} b={b}: two runs differ")
+        ms = (k_first + k_second) / 2
+        wp = spectrum(dp, ep)
+        errp = (wp - ev).abs().max().item()
+        errkp = (wk - wp).abs().max().item()
+        require(errp <= bound, f"K6 n={m} b={b}: the plain chase's "
+                               f"spectrum error {errp} > {bound}")
+        require(errkp <= 1e-4 * wmax, f"K6 n={m} b={b}: kernel and "
+                                      f"plain spectra {errkp} apart")
+        roof = roofline(4 * m * m * b, 4 * (2 * m * (b + 1) + 2 * m))
+        floor, op_us = k6_floor(m, b)
+        if k6_main is None:
+            # about n^2 / (2b) ops of 8 b^2 operations each (the
+            # two-sided update of a b x b block and the one-sided one
+            # of the block below it); the band read once, vout, d
+            # and e written once
+            k6_main = (errkp, ms, plain_ms, roof)
+        turns = ""
+        if m == 8192:
+            l2_ms, cl_ms = time_pair(lambda: k6_launch("l2", ab, b),
+                                     lambda: k6_launch("cluster", ab, b), 1)
+            _, dl, el = k6_launch("l2", ab, b)
+            errl = (spectrum(dl, el) - ev).abs().max().item()
+            require(errl <= bound, f"K6 n={m} b={b}: the l2 route's "
+                                   f"spectrum error {errl} > {bound}")
+            turns = (f"; in turns: cluster route {cl_ms:.1f} ms, l2 route "
+                     f"(the first design) {l2_ms:.1f} ms (spectrum error "
+                     f"{errl:.3e})")
         Q2 = sbr._apply_q2(v.double(), torch.eye(m, device=dev,
                                                  dtype=torch.float64), m, b)
         orth = (Q2.mT @ Q2 - torch.eye(m, device=dev, dtype=torch.float64)
@@ -669,10 +798,16 @@ def main() -> None:
         red = (Q2.mT @ ab.double() @ Q2 - T).abs().max().item()
         require(red <= 1e-4 * wmax, f"K6 n={m} b={b}: max|Q2^T A Q2 - T| "
                                     f"{red} > 1e-4 * {wmax}")
-        print(f"K6 bulge chase n={m} b={b} f32: spectrum error {errk:.3e} "
-              f"(bound {bound:.3e}), max|Q2^T Q2 - I| {orth:.3e}, "
-              f"max|Q2^T A Q2 - T| {red:.3e} (tol {1e-4 * wmax:.3e})  kernel "
-              f"{ks[0]:.1f} / {ks[1]:.1f} ms  {plain}")
+        print(f"K6 bulge chase n={m} b={b} f32 {rt} route "
+              f"({k6_ctas(b, torch.float32)} CTAs a sweep): spectrum error "
+              f"{errk:.3e} (bound {bound:.3e}), max|Q2^T Q2 - I| {orth:.3e}, "
+              f"max|Q2^T A Q2 - T| {red:.3e} (tol {1e-4 * wmax:.3e})  "
+              f"kernel {k_first:.1f} / {k_second:.1f} ms (the same bits)  "
+              f"plain {plain_ms:.1f} ms (one run), its spectrum error "
+              f"{errp:.3e}, kernel vs plain spectra {errkp:.3e}  roofline "
+              f"bound {roof[0]:.4f} ms ({roof[1]})  chain floor "
+              f"{floor:.2f} ms ({k6_chain_ops(m, b, 2)} ops x {op_us:.3f} "
+              f"us)" + turns)
         del ab, Q2, T, v
     for m, b in ((1000, 16), (2048, 256)):
         ab = band(m, b, torch.float64)
@@ -707,7 +842,8 @@ def main() -> None:
         ctrl = HermitianEigCtrl(tridiag_alg=alg)
         sync()
         k1_reset()
-        latrd_panel.launches = sb2tr.launches = 0
+        latrd_panel.launches = 0
+        k6_reset()
         k9_reset()
         t0 = time.perf_counter()
         w, q, r = hermitian_eig_step(h, ctrl)
@@ -715,7 +851,10 @@ def main() -> None:
         first_ms = (time.perf_counter() - t0) * 1e3
         eig_launches[alg] = {"K1": matmul.launches, "K1 cores": k1_counts(),
                              "K5": latrd_panel.launches,
-                             "K6": sb2tr.launches, "K9": k9_counts()}
+                             "K6": sb2tr.launches,
+                             "K6 routes": {r: getattr(sb2tr, f"launches_{r}")
+                                           for r in ("cluster", "l2")},
+                             "K9": k9_counts()}
         t0 = time.perf_counter()
         hermitian_eig_step(h, ctrl)
         sync()
@@ -735,6 +874,9 @@ def main() -> None:
                 f"the eig path ({alg}) did not launch its kernels: {lc}")
         require(lc["K9"]["transpose"] == 0,
                 f"a K9 transpose on the eig path ({alg}): {lc}")
+        require(lc["K6 routes"]["cluster"] == lc["K6"],
+                f"a K6 chase on the eig path ({alg}) left the cluster "
+                f"route: {lc}")
         print(f"slice HermitianEig + residual Gemm ({alg}), n={ne} f32: "
               f"{first_ms:.1f} ms (first run), {again_ms:.1f} ms (second "
               f"run); scaled residual max|HQ-QW|/(eps n max|w|) = "
@@ -759,6 +901,41 @@ def main() -> None:
           f"tridiagonalization {t_tri2:.1f} ms, SBR backtransform "
           f"{t_bt2:.1f} ms")
     del fact, Z, sf, H
+
+    # Tridiagonalization plus backtransform of an n x n block, best of
+    # three, through latrd, SBR b=256 and SBR b=128: the measurement that
+    # sets hermitian_eig.SBR_AUTO_BAND and SBR_AUTO_MIN_N. The identity
+    # stands in for the eigenvectors (the backtransform's cost does not
+    # depend on them).
+    def tri_bt(hn, alg, bw):
+        nn = hn.shape[0]
+        Z = torch.eye(nn, device=dev)
+        if alg == "latrd":
+            f = condense.HermitianTridiag(
+                Et.LOWER, Et.DistMatrix.from_global(hn, grid=Et.Grid(dev)))
+            Mp = f.packed.data.shape[0]
+            Zf = Z.new_zeros((Mp, Mp))
+            Zf[:nn, :nn] = Z
+            return condense.tridiag_apply_q(f, Zf, False)
+        return sbr.sbr_apply_q(sbr.sbr_tridiag(hn, bw), Z, bw)
+
+    table = []
+    for nn in (1024, 2048, 4096, 8192):
+        hn = make_eig_problem(nn, device=dev)
+        best = {}
+        for alg, bw in (("latrd", 0), ("SBR b=256", 256), ("SBR b=128", 128)):
+            best[alg] = min(stage(lambda: tri_bt(hn, alg.split()[0], bw))[1]
+                            for _ in range(3))
+        table.append((nn, best))
+        del hn
+    print("tridiagonalization + backtransform, best of three (ms): "
+          + "; ".join(f"n={nn} " + " / ".join(f"{k} {v:.1f}"
+                                              for k, v in best.items())
+                      + f" (fastest: {min(best, key=best.get)})"
+                      for nn, best in table)
+          + f"; tridiag_alg='auto' takes SBR with band {sbr_auto[0]} from "
+            f"n={sbr_auto[1]} (HermitianEigCtrl's default band "
+            f"{HermitianEigCtrl().band})")
     torch.linalg.eigh(h)
     _, eigh_ms = stage(lambda: torch.linalg.eigh(h))
     print(f"torch.linalg.eigh n={ne} f32 (context): {eigh_ms:.1f} ms")
@@ -1396,6 +1573,30 @@ def main() -> None:
           f"{full_ms:.4f} ms beside fill's row")
     del x, y
 
+    # ---- the LU step's profile (phase 6's problem) ----
+    # One warm LU step under torch.profiler: K4's share of the device time
+    # (its group kernels, the used-row reset and its rank-32 updates, the
+    # pipeline GEMM instance tagged 4) and the idle share. It runs after
+    # phase 12, whose profiler window must see K9's launches alone.
+    a, b = make_lu_problem(n, nrhs, dtype=torch.float32, device=dev)
+    linear_solve_step(a, b)
+    wall, by_name, count = device_profile(lambda: linear_solve_step(a, b))
+    busy = sum(by_name.values())
+    k4_names = ("group_cluster", "group_kernel", "u12_kernel",
+                "init_used_kernel", "gemm<true, false, 4>")
+    k4_dev = {k: v for k, v in by_name.items()
+              if any(t in k for t in k4_names)}
+    k4_ms = sum(k4_dev.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"LU step profile n={n} f32: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms (idle {100 * (1 - busy / wall):.1f}%), {count} "
+          f"device kernels; K4 {k4_ms:.1f} ms ({100 * k4_ms / wall:.1f}% of "
+          f"the wall, {100 * k4_ms / max(busy, 1e-9):.1f}% of the busy "
+          f"time: "
+          + ", ".join(f"{k[:60]} {v:.1f}" for k, v in k4_dev.items())
+          + "); top: " + "; ".join(f"{k[:50]} {v:.1f} ms" for k, v in top))
+    del a, b
+
     # ---- 13. the least-squares slice ----
     # (d) first: each public function of lapack/qr.py, lq.py, gqr.py and
     # euclidean_min.py at about n=300 in float64 on the card against the
@@ -1919,15 +2120,15 @@ def main() -> None:
         row("K3c full-height fused panel tail (potrf_panel_tail_full)",
             csrc + "potrf_tail.cu", "elementalx/kernels/potrf.py:208",
             k3c_launches, k3c_main),
-        row("K4 pivoted LU panel (getrf_panel)", csrc + "getrf.cu",
-            "elementalx/kernels/getrf.py:210", lu_launches["K4"], k4_main,
-            k4_main[3]),
+        row("K4 pivoted LU panel (getrf_panel; cluster route)",
+            csrc + "getrf.cu", "elementalx/kernels/getrf.py:210",
+            lu_launches["K4 routes"]["cluster"], k4_main, k4_main[3]),
         row("K5 latrd panel (latrd_panel)", csrc + "latrd.cu",
             "elementalx/kernels/latrd.py:224", eig_launches["latrd"]["K5"],
             k5_main),
-        row("K6 band to tridiagonal bulge chase (sb2tr)", csrc + "sb2tr.cu",
-            "elementalx/kernels/sb2tr.py:276", eig_launches["sbr"]["K6"],
-            k6_main),
+        row("K6 band to tridiagonal bulge chase (sb2tr; cluster route)",
+            csrc + "sb2tr.cu", "elementalx/kernels/sb2tr.py:276",
+            eig_launches["sbr"]["K6 routes"]["cluster"], k6_main),
     ] + [
         row(name, csrc + "symv.cu", "elementalx/kernels/symv.py:66",
             blas_launches["K7"][core], k7_main[core], k7_main[core][3])

@@ -189,6 +189,45 @@ cudaError_t prepare(Kernel kernel) {
                               kSmemBytes);
 }
 
+// C = alpha A B + beta C (g) on this pipeline, as elx::launch_gemm runs it
+// on the FMA core. kAK: A is K-major (sak = 1), else M-major; kBK: B is
+// K-major (sbk = 1), else N-major. kTag only names the instance, so that
+// a profile tells the callers apart (0: K1, 4: K4's rank-32 update).
+template <bool kAK, bool kBK, int kTag>
+__global__ void __launch_bounds__(kThreads, 1) gemm(const GemmArgs g) {
+  extern __shared__ uint8_t smem[];
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const float* A = static_cast<const float*>(g.A);
+  const float* B = static_cast<const float*>(g.B);
+  const long long ka = kAK ? 1 : g.sak, kb = kBK ? 1 : g.sbk;
+  const int K = g.K;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  tile_product<kAK, kBK>(
+      smem, (K + BK - 1) / BK, g.M, g.N, kAK ? g.sam : g.sak,
+      kBK ? g.sbn : g.sbk, m0, n0,
+      [=](int t) {
+        const long long k0 = static_cast<long long>(t) * BK;
+        return Step{A + k0 * ka, B + k0 * kb,
+                    min(BK, K - static_cast<int>(k0))};
+      },
+      acc);
+  tile_store<float, float>(g, static_cast<float*>(g.C), m0, n0, acc);
+}
+
+template <bool kAK, bool kBK, int kTag = 0>
+cudaError_t launch(const GemmArgs& g, cudaStream_t s) {
+  const auto kernel = gemm<kAK, kBK, kTag>;
+  const cudaError_t err = prepare(kernel);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.M + BM - 1) / BM, (g.N + BN - 1) / BN);
+  kernel<<<grid, kThreads, kSmemBytes, s>>>(g);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace pipe
 }  // namespace elx

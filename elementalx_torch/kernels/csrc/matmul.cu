@@ -82,47 +82,6 @@ cudaError_t launch_sm90(bool a_m_major, bool b_n_major, const CUtensorMap& ta,
                    : launch_sm90<false, false, TOut>(ta, tb, K, e, s);
 }
 
-// The float32 FMA core on the cp.async pipeline (gemm_f32_pipe.cuh). kAK:
-// A is K-major (sak = 1), else M-major; kBK: B is K-major (sbk = 1), else
-// N-major.
-template <bool kAK, bool kBK>
-__global__ void __launch_bounds__(elx::pipe::kThreads, 1)
-    matmul_pipe(const elx::GemmArgs g) {
-  using namespace elx::pipe;
-  extern __shared__ uint8_t smem[];
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const float* A = static_cast<const float*>(g.A);
-  const float* B = static_cast<const float*>(g.B);
-  const long long ka = kAK ? 1 : g.sak, kb = kBK ? 1 : g.sbk;
-  const int K = g.K;
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  tile_product<kAK, kBK>(
-      smem, (K + BK - 1) / BK, g.M, g.N, kAK ? g.sam : g.sak,
-      kBK ? g.sbn : g.sbk, m0, n0,
-      [=](int t) {
-        const long long k0 = static_cast<long long>(t) * BK;
-        return Step{A + k0 * ka, B + k0 * kb,
-                    min(BK, K - static_cast<int>(k0))};
-      },
-      acc);
-  elx::tile_store<float, float>(g, static_cast<float*>(g.C), m0, n0, acc);
-}
-
-template <bool kAK, bool kBK>
-cudaError_t launch_pipe(const elx::GemmArgs& g, cudaStream_t s) {
-  using namespace elx::pipe;
-  const auto kernel = matmul_pipe<kAK, kBK>;
-  const cudaError_t err = prepare(kernel);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((g.M + BM - 1) / BM, (g.N + BN - 1) / BN);
-  kernel<<<grid, kThreads, kSmemBytes, s>>>(g);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // The FMA core: any strides, float32 / float64 / bfloat16 inputs.
@@ -184,8 +143,8 @@ extern "C" int elx_matmul_fma_async(int M, int N, int K, const void* A,
                         scm, scn, 0, 1.0, 0.0, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a_m_major)
-    return b_n_major ? launch_pipe<false, false>(g, s)
-                     : launch_pipe<false, true>(g, s);
-  return b_n_major ? launch_pipe<true, false>(g, s)
-                   : launch_pipe<true, true>(g, s);
+    return b_n_major ? elx::pipe::launch<false, false>(g, s)
+                     : elx::pipe::launch<false, true>(g, s);
+  return b_n_major ? elx::pipe::launch<true, false>(g, s)
+                   : elx::pipe::launch<true, true>(g, s);
 }

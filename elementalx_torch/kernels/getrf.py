@@ -4,8 +4,16 @@ Counterpart of ``elementalx/kernels/getrf.py`` (``getrf_panel``, body
 ``_getrf_kernel``, and ``pallas_getrf``). The CUDA kernel is
 ``csrc/getrf.cu``; its header says why the TPU design (the transposed
 panel in VMEM, one-hot MXU gathers) does not carry over, what bounds the
-kernel on the H100 (one grid-wide barrier per column) and what this first
-design gives up.
+kernel on the H100 (a chain of one dependent pivot search a column) and
+what each route gives up.
+
+Two routes, chosen by ``route`` from the shape and dtype alone:
+"cluster" (one thread-block cluster of ``cluster_ctas(Mt, dtype)`` CTAs
+holds a 32-column group of all Mt rows in its shared memory, one cluster
+barrier a column) wherever that fits, and "grid" (the first design: a
+cooperative launch, one ``grid.sync()`` a column) for taller panels.
+``getrf_panel.launches_<route>`` count each route, ``.launches`` their
+sum.
 
 ``getrf_panel(a)`` returns ``(out, piv)`` with the contract of the JAX
 kernel: rows stay in their original positions; the row elected for column
@@ -41,7 +49,41 @@ from .common import (
 GROUP = 32
 MAX_GRID = 1024
 
-_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 10
+_ARGTYPES = (ctypes.c_int,) * 5 + (ctypes.c_void_p,) * 10
+
+ROUTES = ("cluster", "grid")
+_ROUTE_CODE = {"grid": 0, "cluster": 1}
+#: the shared memory a CTA of the H100 may ask for (227 KB), the most CTAs
+#: a cluster may have (16, the non-portable size), and room left for the
+#: cluster kernel's static shared memory
+SMEM_OPTIN = 232448
+MAX_CLUSTER = 16
+_STATIC_SMEM = 12288
+
+
+def cluster_ctas(Mt: int, dtype: torch.dtype) -> int:
+    """CTAs of the cluster route for an (Mt, w) panel: the power of two
+    that gives each CTA about 512 rows (at most 16: at Mt = 8192, 16 CTAs
+    of 512 rows ran 1.91 ms against 8 of 1024 rows' 2.40, NVIDIA H100
+    80GB HBM3 at 700 W, probes/k4_k6.py), doubled until a CTA's rows of
+    one group (33 words a row and a flag byte) fit in shared memory; 0
+    when not even 16 CTAs hold them (the grid route)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    c = 1
+    while c < min(-(-Mt // 512), MAX_CLUSTER):
+        c *= 2
+    while True:
+        rpc = -(-Mt // c)
+        if rpc * ((GROUP + 1) * itemsize + 1) + _STATIC_SMEM <= SMEM_OPTIN:
+            return c
+        if c == MAX_CLUSTER:
+            return 0
+        c *= 2
+
+
+def route(Mt: int, dtype: torch.dtype) -> str:
+    """The K4 route for an (Mt, w) panel in dtype."""
+    return "cluster" if cluster_ctas(Mt, dtype) else "grid"
 
 
 def lu_plain(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -79,39 +121,67 @@ def _check(a: torch.Tensor) -> None:
         raise TypeError(f"getrf_panel: unsupported dtype {a.dtype}")
 
 
-def getrf_panel(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, piv) of a panel, rows in place. CPU tensors take
-    ``getrf_panel_plain``; CUDA tensors launch the K4 kernel or raise.
-    ``getrf_panel.launches`` counts kernel launches. ``a`` is not
-    written."""
-    if not on_cuda(a):
-        return getrf_panel_plain(a)
+def _launch(rt: str, a: torch.Tensor, csize: int = 0
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One K4 call on route ``rt`` (the cluster route with ``csize`` CTAs,
+    ``cluster_ctas`` when 0), counted on that route. ``getrf_panel`` calls
+    it with ``route``'s choice; tests and probes hold the routes and
+    cluster sizes against each other with it."""
     _check(a)
     Mt, w = a.shape
     dev, dt = a.device, a.dtype
+    if rt == "cluster":
+        csize = csize or cluster_ctas(Mt, dt)
+        if not 1 <= csize <= MAX_CLUSTER:
+            raise ValueError(f"getrf_panel: no cluster route for Mt={Mt} "
+                             f"in {dt}")
     out = a.clone(memory_format=torch.contiguous_format)  # factored in place
     piv = torch.empty((w,), dtype=torch.int32, device=dev)
     used = torch.empty((Mt,), dtype=torch.int32, device=dev)
     mbuf = torch.empty((Mt, GROUP), dtype=dt, device=dev)
     ubuf = torch.empty((GROUP, w), dtype=dt, device=dev)
-    cand = torch.empty((2, MAX_GRID, GROUP), dtype=dt, device=dev)
-    cand_mag = torch.empty((2, MAX_GRID), dtype=dt, device=dev)
-    cand_row = torch.empty((2, MAX_GRID), dtype=torch.int32, device=dev)
-    # the rows' group columns, where a CTA's share exceeds shared memory
-    slab = torch.empty(((Mt + MAX_GRID) * (GROUP + 1),), dtype=dt,
-                       device=dev)
+    grid_scratch = [0, 0, 0, 0]
+    if rt == "grid":
+        grid_scratch = [
+            torch.empty((2, MAX_GRID, GROUP), dtype=dt, device=dev),
+            torch.empty((2, MAX_GRID), dtype=dt, device=dev),
+            torch.empty((2, MAX_GRID), dtype=torch.int32, device=dev),
+            # the rows' group columns, where a CTA's share exceeds shared
+            # memory
+            torch.empty(((Mt + MAX_GRID) * (GROUP + 1),), dtype=dt,
+                        device=dev)]
+    ptrs = [x.data_ptr() if isinstance(x, torch.Tensor) else None
+            for x in grid_scratch]
     fn = kernel_function("elx_getrf_panel", _ARGTYPES)
     with torch.cuda.device(dev):
-        rc = fn(DTYPE_CODE[dt], Mt, w, out.data_ptr(), piv.data_ptr(),
-                used.data_ptr(), mbuf.data_ptr(), ubuf.data_ptr(),
-                cand.data_ptr(), cand_mag.data_ptr(), cand_row.data_ptr(),
-                slab.data_ptr(), current_stream(a))
+        rc = fn(_ROUTE_CODE[rt], csize, DTYPE_CODE[dt], Mt, w,
+                out.data_ptr(), piv.data_ptr(), used.data_ptr(),
+                mbuf.data_ptr(), ubuf.data_ptr(), *ptrs, current_stream(a))
     check_launch(rc, "elx_getrf_panel")
+    setattr(getrf_panel, f"launches_{rt}",
+            getattr(getrf_panel, f"launches_{rt}") + 1)
     getrf_panel.launches += 1
     return out, piv.long()
 
 
-getrf_panel.launches = 0
+def getrf_panel(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, piv) of a panel, rows in place. CPU tensors take
+    ``getrf_panel_plain``; CUDA tensors launch the K4 kernel on
+    ``route``'s choice or raise. ``a`` is not written."""
+    if not on_cuda(a):
+        return getrf_panel_plain(a)
+    _check(a)
+    return _launch(route(a.shape[0], a.dtype), a)
+
+
+def reset_launches() -> None:
+    """Zero K4's launch counts (every route and the sum)."""
+    getrf_panel.launches = 0
+    for rt in ROUTES:
+        setattr(getrf_panel, f"launches_{rt}", 0)
+
+
+reset_launches()
 
 
 def packed_getrf(sl: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -47,13 +47,17 @@ from .sbr import sbr_apply_q, sbr_tridiag
 from .tridiag_eig import tridiag_eig, tridiag_eigvalsh
 
 #: ``tridiag_alg="auto"`` on a CUDA tensor takes SBR only with this band
-#: and from this order on, the one case where the card measured SBR
-#: faster than latrd. Tridiagonalization plus backtransform of an n x n
-#: block, best of three, NVIDIA H100 80GB HBM3 at 700 W (PERF.md
-#: section 5), latrd / SBR b=256 / SBR b=128 in ms:
-#: n=1024 106.1 / 219.3 / 126.7; 2048 189.0 / 504.8 / 221.7; 4096 474.8 /
-#: 1120.1 / 478.9; 8192 1781.7 / 2412.5 / 1095.0. So b=128 wins at 8192
-#: and ties at 4096, and the default b=256 loses to latrd at every n.
+#: and from this order on. Tridiagonalization plus backtransform of an
+#: n x n block, best of three, NVIDIA H100 80GB HBM3 at 700 W
+#: (chip_smoke.py phase 8, PERF.md section 5), latrd / SBR b=256 / SBR
+#: b=128 in ms, with K6 on its cluster route: n=1024 89.4 / 65.4 / 72.3;
+#: 2048 168.7 / 124.7 / 134.9; 4096 333.7 / 244.8 / 337.9; 8192 921.7 /
+#: 579.8 / 730.0. SBR b=256 is the fastest at every measured n, but
+#: HermitianGenDefEig at n=8192 through it read a scaled residual of
+#: 167.3 against its gate of 100 (latrd: 75.2; chip_smoke.py phase 11),
+#: so the default band (256) stays on latrd. SBR b=128 beat latrd at every
+#: n in another run of the same script but tied it at 4096 in this one,
+#: so it is taken only from 8192, where it wins by a fifth in both.
 SBR_AUTO_BAND, SBR_AUTO_MIN_N = 128, 8192
 
 

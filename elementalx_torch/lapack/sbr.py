@@ -150,6 +150,52 @@ def chase_smax(n: int, b: int) -> int:
     return -(-s // 8) * 8
 
 
+def _chase_house(ap: torch.Tensor, j: int, s: int, b: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stage 1 of chase op (j, s) on the padded dense matrix ``ap``: the
+    Householder (v, tau, beta) of the window's eliminated column. Reads
+    only that column; writes nothing."""
+    ce = j if s == 0 else j + 1 + (s - 1) * b
+    r0 = j + 1 + s * b
+    return _house_padded(ap[r0:r0 + b, ce])
+
+
+def _chase_apply(ap: torch.Tensor, j: int, s: int, b: int, v: torch.Tensor,
+                 tau: torch.Tensor, beta: torch.Tensor,
+                 vout: torch.Tensor) -> None:
+    """Stage 2 of chase op (j, s): the two-sided update of the window's rows
+    and columns over [r0-b, r0+2b), the eliminated column set to [beta, 0,
+    ...] with its mirror, and the record vout[j, s] = [tau | v[1:]]."""
+    ce = j if s == 0 else j + 1 + (s - 1) * b
+    r0 = j + 1 + s * b
+    c0, c1 = max(r0 - b, 0), r0 + 2 * b
+    tv = tau * v
+    blk = ap[r0:r0 + b, c0:c1]
+    blk.addr_(tv, v @ blk, alpha=-1)
+    blc = ap[c0:c1, r0:r0 + b]
+    blc.addr_(blc @ v, tv, alpha=-1)
+    # elimination hygiene: exact [beta, 0, ...] column + mirror
+    ap[r0:r0 + b, ce] = 0
+    ap[r0, ce] = beta
+    ap[ce, r0:r0 + b] = ap[r0:r0 + b, ce]
+    vout[j, s, 0] = tau
+    vout[j, s, 1:] = v[1:]
+
+
+def chase_ops(n: int, b: int, j: int) -> int:
+    """Ops of sweep j of the chase of an order-n band of width b."""
+    return min(max(1, (n - 2 - j + b - 1) // b + 1), chase_smax(n, b))
+
+
+def _chase_pad(a_band: torch.Tensor, b: int) -> torch.Tensor:
+    """The band in a zero-padded dense (n + 3b)^2 buffer: the padding is
+    the farthest a window reaches past n."""
+    n = a_band.shape[0]
+    ap = a_band.new_zeros((n + 3 * b, n + 3 * b))
+    ap[:n, :n] = a_band
+    return ap
+
+
 def _sb2tr_dense(a_band: torch.Tensor, b: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense reference of the band -> tridiagonal chase: column-major
@@ -157,35 +203,17 @@ def _sb2tr_dense(a_band: torch.Tensor, b: int
     eliminating column ce (j at s = 0, r0 - b after), full-length zero
     padded windows with trivial guards. Returns (a_tri_dense, vout).
 
-    Each op updates only the window's rows over columns [r0-b, r0+2b) and
-    its columns over the same rows: everything else in them is zero at op
-    time (the JAX package updates the whole padded row and column block;
-    the zeros stay zero). The padding is 3b, the farthest a window
-    reaches past n."""
+    Each op (``_chase_house`` then ``_chase_apply``) updates only the
+    window's rows over columns [r0-b, r0+2b) and its columns over the same
+    rows: everything else in them is zero at op time (the JAX package
+    updates the whole padded row and column block; the zeros stay zero)."""
     n = a_band.shape[0]
-    smax = chase_smax(n, b)
-    N = n + 3 * b
-    ap = a_band.new_zeros((N, N))
-    ap[:n, :n] = a_band
-    vout = a_band.new_zeros((n, smax, b))
+    ap = _chase_pad(a_band, b)
+    vout = a_band.new_zeros((n, chase_smax(n, b), b))
     for j in range(max(n - 2, 0)):
-        sj = min(max(1, (n - 2 - j + b - 1) // b + 1), smax)
-        for s in range(sj):
-            ce = j if s == 0 else j + 1 + (s - 1) * b
-            r0 = j + 1 + s * b
-            c0, c1 = max(r0 - b, 0), r0 + 2 * b
-            v, tau, beta = _house_padded(ap[r0:r0 + b, ce])
-            tv = tau * v
-            blk = ap[r0:r0 + b, c0:c1]
-            blk.addr_(tv, v @ blk, alpha=-1)
-            blc = ap[c0:c1, r0:r0 + b]
-            blc.addr_(blc @ v, tv, alpha=-1)
-            # elimination hygiene: exact [beta, 0, ...] column + mirror
-            ap[r0:r0 + b, ce] = 0
-            ap[r0, ce] = beta
-            ap[ce, r0:r0 + b] = ap[r0:r0 + b, ce]
-            vout[j, s, 0] = tau
-            vout[j, s, 1:] = v[1:]
+        for s in range(chase_ops(n, b, j)):
+            v, tau, beta = _chase_house(ap, j, s, b)
+            _chase_apply(ap, j, s, b, v, tau, beta, vout)
     return ap[:n, :n], vout
 
 

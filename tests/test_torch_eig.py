@@ -617,6 +617,58 @@ def test_sb2tr_dense_parity_through_spectrum_and_q2(jax_sbr64):
     assert tv.shape == jv.shape
 
 
+def _chase_replay(a: torch.Tensor, b: int, lag: int):
+    """The chase in the K6 kernel's dependency order: op (j, s) runs beside
+    op (j-1, s+lag) and after (j-1, s+lag-1). One step runs every op
+    (j, t - lag j): first each op's Householder, its beta published at the
+    head of its column (and the mirror) as the kernel publishes it; then
+    the updates, the later sweep first; the entry that op (j, s) shares
+    with op (j-1, s+2), B's corner A[r0+2b-1, r0+b-1], is handed over:
+    (j, s) reads the published beta and its own write lands after
+    (j-1, s+2) has written beta there (the kernel keeps B on chip and
+    writes it back at the end of op (j, s+1))."""
+    n = a.shape[0]
+    ap = ts._chase_pad(a, b)
+    vout = a.new_zeros((n, ts.chase_smax(n, b), b))
+    ops = [ts.chase_ops(n, b, j) for j in range(max(n - 2, 0))]
+    for t in range(lag * len(ops) + max(ops, default=0)):
+        step = [(j, t - lag * j) for j in range(len(ops))
+                if 0 <= t - lag * j < ops[j]]
+        house = {}
+        for j, s in step:
+            house[j, s] = ts._chase_house(ap, j, s, b)
+            ce = j if s == 0 else j + 1 + (s - 1) * b
+            r0 = j + 1 + s * b
+            ap[r0, ce] = ap[ce, r0] = house[j, s][2]
+        held = []
+        for j, s in sorted(step, reverse=True):
+            ts._chase_apply(ap, j, s, b, *house[j, s], vout)
+            r, c = j + 1 + s * b + 2 * b - 1, j + s * b + b
+            held.append((r, c, ap[r, c].clone(), ap[c, r].clone()))
+        for r, c, x, y in held:
+            ap[r, c], ap[c, r] = x, y
+    return ap[:n, :n], vout
+
+
+@pytest.mark.parametrize("n,b", [(37, 2), (33, 3), (50, 3), (61, 16),
+                                 (100, 16)])
+def test_chase_replay_at_kernel_lag(n, b):
+    """K6 starts op (j, s) once op (j-1, s+1) is done (a lag of two ops)
+    and waits for (j-1, s+2)'s beta only for B's corner. The chase replayed
+    in that order equals _sb2tr_dense bit for bit in float64 (ragged n,
+    b = 2, 3, 16); at a lag of one it does not, so the replay can tell."""
+    rng = np.random.default_rng(n + b)
+    x = rng.standard_normal((n, n))
+    i = np.arange(n)
+    x = np.where(np.abs(i[:, None] - i[None, :]) <= b, (x + x.T) / 2, 0)
+    a = torch.tensor(x)
+    ref_t, ref_v = ts._sb2tr_dense(a, b)
+    t2, v2 = _chase_replay(a, b, 2)
+    assert torch.equal(t2, ref_t) and torch.equal(v2, ref_v)
+    t1, _ = _chase_replay(a, b, 1)
+    assert not torch.equal(t1, ref_t)
+
+
 @pytest.mark.parametrize("adjoint", [False, True])
 def test_apply_q2_parity_on_jax_reflectors(jax_sbr64, adjoint):
     """The port's diamond backtransform on the JAX chase's own vout

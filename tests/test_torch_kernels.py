@@ -13,6 +13,8 @@ They import no JAX, so on a machine with a card and no JAX they run as
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -389,6 +391,41 @@ def test_getrf_cpu_tensors_count_nothing():
     assert getrf_panel.launches == before
 
 
+@pytest.mark.parametrize("Mt,dt,rt,ctas", [
+    # the LU path's sub-panels: about 512 rows a CTA, at most 16 CTAs
+    # (16384 rows: 16 of 1024 rows, 132 KB each)
+    (16384, torch.float32, "cluster", 16), (8192, torch.float32, "cluster", 16),
+    (512, torch.float32, "cluster", 1), (1000, torch.float32, "cluster", 2),
+    # float64: 512 rows a CTA at 4096; 16384 rows need 270 KB a CTA
+    (4096, torch.float64, "cluster", 8), (16384, torch.float64, "grid", 0),
+    (40000, torch.float32, "grid", 0), (120000, torch.float64, "grid", 0),
+])
+def test_getrf_route(Mt, dt, rt, ctas):
+    """K4's route and cluster size from the shape and dtype alone: every
+    CTA's rows of one group (33 words and a flag byte a row) fit in 227 KB
+    of shared memory with room for the kernel's static arrays."""
+    k4 = importlib.import_module("elementalx_torch.kernels.getrf")
+
+    assert k4.route(Mt, dt) == rt and k4.cluster_ctas(Mt, dt) == ctas
+    if ctas:
+        rpc = -(-Mt // ctas)
+        assert rpc * (33 * dt.itemsize + 1) + 12288 <= k4.SMEM_OPTIN
+
+
+def test_getrf_sb2tr_reset_launches():
+    k4 = importlib.import_module("elementalx_torch.kernels.getrf")
+    k6 = importlib.import_module("elementalx_torch.kernels.sb2tr")
+
+    k4.reset_launches()
+    k6.reset_launches()
+    getrf_panel(torch.eye(4))
+    sb2tr(torch.eye(8, dtype=torch.float64), 2)
+    assert getrf_panel.launches == 0 and sb2tr.launches == 0
+    assert all(getattr(getrf_panel, f"launches_{r}") == 0
+               for r in k4.ROUTES)
+    assert all(getattr(sb2tr, f"launches_{r}") == 0 for r in k6.ROUTES)
+
+
 # ---------------------------------------------------------------------------
 # K5 and K6 on the CPU: the plain versions against the JAX kernels
 # ---------------------------------------------------------------------------
@@ -499,6 +536,39 @@ def test_sb2tr_plain_contract_f64(n, b):
     spec, orth, red = _q2_contract(v, d, e, ab, b)
     scale = max(np.abs(ab).max(), 1)
     assert spec < 1e-12 * scale and orth < 1e-12 and red < 1e-12 * scale
+
+
+@pytest.mark.parametrize("b,dt,rt,ctas", [
+    (256, torch.float32, "cluster", 8), (128, torch.float32, "cluster", 4),
+    (16, torch.float32, "cluster", 1), (2, torch.float64, "cluster", 1),
+    (256, torch.float64, "cluster", 8), (512, torch.float32, "cluster", 16),
+    (512, torch.float64, "l2", 0), (1024, torch.float32, "l2", 0),
+])
+def test_sb2tr_route(b, dt, rt, ctas):
+    """K6's route and cluster size from b and the dtype alone: about 32
+    window rows a CTA, the three R x b blocks in 227 KB of shared memory
+    (float64 at b=256: 8 CTAs, 204 KB each)."""
+    k6 = importlib.import_module("elementalx_torch.kernels.sb2tr")
+
+    assert k6.route(b, dt) == rt and k6.cluster_size(b, dt) == ctas
+    if ctas:
+        assert k6._cluster_smem(b, -(-b // ctas), dt.itemsize) \
+            <= k6.SMEM_OPTIN
+
+
+def test_sb2tr_chain_ops():
+    """The critical path of the chase: about 2n ops at the kernel's lag of
+    two, about 3n at the first design's lag of three (n=8192: 16380 and
+    24314 at b=256); a single sweep is its own ops."""
+    k6 = importlib.import_module("elementalx_torch.kernels.sb2tr")
+    from elementalx_torch.lapack.sbr import chase_ops
+
+    assert k6.chain_ops(8192, 256, 2) == 16380
+    assert k6.chain_ops(8192, 256, 3) == 24314
+    assert k6.chain_ops(3, 2) == chase_ops(3, 2, 0)
+    for n, b in ((100, 3), (1000, 16)):
+        two, three = k6.chain_ops(n, b, 2), k6.chain_ops(n, b, 3)
+        assert 2 * (n - 3) < two < three <= 3 * n
 
 
 def test_latrd_sb2tr_cpu_tensors_count_nothing():
@@ -1128,25 +1198,32 @@ def test_non_hpd_on_card_raises(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("Mt,w,dt", [
     (1000, 200, torch.float32), (4096, 512, torch.float64),
-    (16384, 512, torch.float32), (33, 33, torch.float64),
+    (16384, 512, torch.float32), (16384, 512, torch.float64),
+    (33, 33, torch.float64),
     (70, 3, torch.float64), (512, 512, torch.float32),
     # more rows than threads per CTA; a row share too big for shared memory
     (40000, 64, torch.float32), (120000, 32, torch.float64),
 ])
 def test_getrf_kernel_vs_plain(cuda, Mt, w, dt):
-    """K4 against torch.linalg.lu_factor on the card. Checked in float64:
+    """K4 against torch.linalg.lu_factor on the card, on the route
+    ``route`` gives the shape (its counter checked). Checked in float64:
     lperm a permutation, max|P A - L U| <= tol max|A| (float32: 1e-5,
     about 100 eps for rows of 512 Gaussian entries; float64: 1e-13) and
     |L| <= 1 + tol. float64 pivots are identical to the plain version's;
     float32 ones may differ on near-ties and are not compared."""
+    k4 = importlib.import_module("elementalx_torch.kernels.getrf")
+
     g = torch.Generator(device=cuda).manual_seed(2)
     a = torch.randn((Mt, w), generator=g, device=cuda,
                     dtype=torch.float64).to(dt)
+    rt = k4.route(Mt, dt)
     before = getrf_panel.launches
+    on_route = getattr(getrf_panel, f"launches_{rt}")
     out, piv = getrf_panel(a)
     pk, lp = packed_getrf(a)
     torch.cuda.synchronize()
     assert getrf_panel.launches == before + 2
+    assert getattr(getrf_panel, f"launches_{rt}") == on_route + 2
     tol = 1e-5 if dt == torch.float32 else 1e-13
     err, lmax = _check_marked_contract(a.cpu().numpy(), out.cpu().numpy(),
                                        piv.cpu().numpy())
@@ -1156,6 +1233,32 @@ def test_getrf_kernel_vs_plain(cuda, Mt, w, dt):
     if dt == torch.float64:
         _, ref_piv = getrf_panel_plain(a)
         assert torch.equal(piv, ref_piv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Mt,w,dt", [
+    (16384, 512, torch.float32), (4096, 512, torch.float64),
+    (1000, 200, torch.float32), (70, 3, torch.float64),
+])
+def test_getrf_routes_agree_bit_for_bit(cuda, Mt, w, dt):
+    """Both routes give every entry the same operations in the same order
+    (the group's eliminations, the forward substitution, the rank-32
+    update on K1's pipeline or FMA core, which agree bit for bit), so the
+    cluster route's factor and pivots equal the grid route's bit for bit,
+    and a cluster of another size gives the same bits too."""
+    k4 = importlib.import_module("elementalx_torch.kernels.getrf")
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.randn((Mt, w), generator=g, device=cuda,
+                    dtype=torch.float64).to(dt)
+    oc, pc = k4._launch("cluster", a)
+    og, pg = k4._launch("grid", a)
+    ctas = k4.cluster_ctas(Mt, dt)
+    other = ctas * 2 if ctas < 16 and k4.cluster_ctas(Mt, dt) else ctas
+    o2, p2 = k4._launch("cluster", a, other)
+    torch.cuda.synchronize()
+    assert torch.equal(pc, pg) and torch.equal(oc, og)
+    assert torch.equal(p2, pc) and torch.equal(o2, oc)
 
 
 @pytest.mark.cuda
@@ -1295,29 +1398,62 @@ def test_latrd_kernel_refuses_complex_and_bad_width(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,b", [(40, 4), (300, 16), (1000, 16),
-                                 (1024, 128), (513, 256)])
+                                 (1024, 128), (513, 256), (101, 3),
+                                 (700, 512)])
 def test_sb2tr_kernel_vs_plain_f64(cuda, n, b):
-    """K6 in float64 against the sequential plain chase: the same ops in
-    the same order, so vout, d and e agree to float64 rounding (1e-9 of
-    the band's largest entry)."""
+    """K6 in float64 against the sequential plain chase on the route
+    ``route`` gives b (b=512 in float64: the l2 route; the others the
+    cluster route), its counter checked: the same ops, so vout, d and e
+    agree to float64 rounding (1e-9 of the band's largest entry); a
+    second run gives the same bits."""
+    k6 = importlib.import_module("elementalx_torch.kernels.sb2tr")
+
     g = torch.Generator(device=cuda).manual_seed(7)
     x = torch.randn((n, n), generator=g, device=cuda, dtype=torch.float64)
     i = torch.arange(n, device=cuda)
     ab = torch.where((i[:, None] - i[None, :]).abs() <= b, (x + x.mT) / 2,
                      torch.zeros((), dtype=torch.float64, device=cuda))
+    rt = k6.route(b, torch.float64)
     before = sb2tr.launches
+    on_route = getattr(sb2tr, f"launches_{rt}")
     v, d, e = sb2tr(ab, b)
+    v2, d2, e2 = sb2tr(ab, b)
     vp, dp, ep = sb2tr_plain(ab, b)
     torch.cuda.synchronize()
-    assert sb2tr.launches == before + 1
+    assert sb2tr.launches == before + 2
+    assert getattr(sb2tr, f"launches_{rt}") == on_route + 2
     tol = 1e-9 * ab.abs().max().item()
     assert (v - vp).abs().max().item() <= tol
     assert (d - dp).abs().max().item() <= tol
     assert (e - ep).abs().max().item() <= tol
+    assert torch.equal(v, v2) and torch.equal(d, d2) and torch.equal(e, e2)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,b", [(1000, 16), (2048, 128)])
+@pytest.mark.parametrize("b,ctas", [(256, 16), (128, 2), (128, 8),
+                                    (16, 2)])
+def test_sb2tr_cluster_sizes_and_l2_route(cuda, b, ctas):
+    """The cluster route at another cluster size than ``cluster_size``
+    and the l2 route on the same float64 band, each within 1e-9 max|A|
+    of the plain chase (the sums run in other orders)."""
+    k6 = importlib.import_module("elementalx_torch.kernels.sb2tr")
+
+    n = 600
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((n, n), generator=g, device=cuda, dtype=torch.float64)
+    i = torch.arange(n, device=cuda)
+    ab = torch.where((i[:, None] - i[None, :]).abs() <= b, (x + x.mT) / 2,
+                     torch.zeros((), dtype=torch.float64, device=cuda))
+    ref = sb2tr_plain(ab, b)
+    tol = 1e-9 * ab.abs().max().item()
+    for out in (k6._launch("cluster", ab, b, ctas), k6._launch("l2", ab, b)):
+        torch.cuda.synchronize()
+        assert max((x - y).abs().max().item()
+                   for x, y in zip(out, ref)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b", [(1000, 16), (2048, 128), (2048, 256)])
 def test_sb2tr_kernel_f32_spectrum(cuda, n, b):
     """float32: the spectrum of (d, e) within 100 n eps max|w| of
     eigvalsh of the band, and Q2 orthogonal to 100 n eps."""
