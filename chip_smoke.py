@@ -9,16 +9,23 @@ Phases (each raises on failure, so the script exits non-zero):
   1. set-up: the card, torch and CUDA versions, the kernel build time;
   2. K1 (local GEMM) against its plain version at the main path's shapes,
      each case on the core ``route`` gives it: float32 on the FP32 FMA core
-     fed by cp.async, bfloat16 on the tensor cores (the Cholesky history
-     product with B a .mH view into float32, and 16384^3), misaligned
-     operands on the FMA core; each timed against ``torch.matmul`` in the
-     operands' type and its bound at the right peak;
+     fed by cp.async (bit for bit the FMA core's; rows of 777 floats and
+     their .mT in 4-byte copies on 64 x 128 tiles), bfloat16 on the
+     tensor cores (the Cholesky history product with B a .mH view into
+     float32, and 16384^3), the dist step's SUMMA_C k-panel (8192 x 128)
+     (128 x 2) on the skinny route (the same bits twice), float64 2048^3
+     and misaligned bf16 on the FMA core; each timed against
+     ``torch.matmul`` in the operands' type and its bound at the right
+     peak (FP64 FMA 33.5 TFLOP/s for float64);
   3. K3a (Cholesky diagonal block) against its plain version, and the NaN
      poisoning of a block that is not positive definite;
   4. the slice: ``elementalx_torch.entry`` at n=16384, nrhs=256, float32,
      with the scaled residual checked in float64 and the kernels' launch
      counts read around the run; and a small float64 run held against the
-     same step on the CPU (plain versions);
+     same step on the CPU (plain versions). From here on every K1 launch
+     on the FMA core is named by its operands, and the float64 runs of the
+     slices against the CPU (phases 4, 6, 8, 11, 14) count their K1
+     launches by core;
   5. the cost of a grid.sync(), a cluster barrier and a cluster barrier
      with a DSMEM read (kernels/sync_probe.py); K4 (pivoted LU panel)
      against its plain version at the LU path's sub-panel shapes and in
@@ -35,10 +42,12 @@ Phases (each raises on failure, so the script exits non-zero):
      step, K4's share of the device time and the idle share, runs after
      phase 12);
   7. K5 (latrd panel) and K6 (bulge chase) against their plain versions:
-     K5 at the HermitianEig path's panels (M=8192, k0=0 and 4096), a
-     ragged panel and a float64 one, each against its bound (each byte
-     once) and the floor of its algorithm (the trailing triangle streamed
-     once per column; a triangle that fits in the 50 MB L2 is marked so);
+     K5 at the HermitianEig path's panels (M=8192, k0=0 and 4096, beside
+     the four-barrier design's times), a ragged panel and a float64 one,
+     the same bits on a
+     second run, each against its bound (each byte once) and the floor of
+     its algorithm (the trailing triangle streamed once per column; a
+     triangle that fits in the 50 MB L2 is marked so);
      K6 at n=8192 with b=256 and b=128 and at n=1000
      with b=16, each on the route ``k6_route`` gives it, kernel and plain
      in turns (kernel, plain, kernel; the two kernel runs the same bits),
@@ -100,7 +109,8 @@ Phases (each raises on failure, so the script exits non-zero):
      the library call, and at a ragged float64 size on a 4x2 grid; ``dist_gemm_step`` at n=16384 float32 on the 2x2 grid with x
      moved off the solution, gated on R3 entry by entry against a float64
      chain in plain torch, on the norms against the same step on a 1 x 1
-     grid and on its K1/K8/K9 launches, with the bytes each
+     grid and on its K1/K8/K9 launches (every SUMMA product on K1's skinny
+     route, none on the FMA core), with the bytes each
      redistribution moved and a profile; SUMMA A/B/C/Dot, Cannon and
      Gemm3D(depth=2) at n=16384 against K1 on the gathered operands; a
      Gemm on 2x3 and 3x2 grids against a float64 product; every ordered pair of
@@ -109,11 +119,13 @@ Phases (each raises on failure, so the script exits non-zero):
 Phases 4, 6, 8, 10 and 11 also read K9's launches (the residual Gemm's
 beta C is a K9 axpby) and gate that no K9 transpose runs on their paths.
 The line before the last is a JSON summary of the kernels (K1 and K8 one
-row per core that the main paths launched, K7 one per core), each with
+row per core that the main paths launched, the float64 runs included,
+K7 one per core), each with
 its bound (the
 larger of its bytes over 3.35 TB/s and its operations over the peak of the
 units it runs on: 67 TFLOP/s FP32, 989 TFLOP/s dense bf16 on the tensor
-cores, the H100 SXM's published peaks); the last line is
+cores, the H100 SXM's published peaks; 33.5 TFLOP/s of FP64 FMA for the
+FMA core's float64 row); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
 repository, it fails and prints no result.
 """
@@ -137,8 +149,10 @@ def require(cond: bool, msg: str) -> None:
 
 
 #: H100 SXM published peaks: FP32 outside the tensor cores, dense bf16 on
-#: the tensor cores, HBM3; and its L2's size
+#: the tensor cores, HBM3; FP64 FMA outside the tensor cores (the FMA
+#: core's float64); and its L2's size
 PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+PEAK_FP64 = 33.5e12
 L2_BYTES = 50e6
 
 
@@ -182,6 +196,7 @@ def main() -> None:
     from elementalx_torch.kernels.getrf import route as k4_route
     from elementalx_torch.kernels.latrd import latrd_panel, latrd_panel_plain
     from elementalx_torch.kernels.matmul import CORES as K1_CORES
+    from elementalx_torch.kernels.matmul import _launch as k1_launch
     from elementalx_torch.kernels.matmul import matmul, matmul_plain
     from elementalx_torch.kernels.matmul import reset_launches as k1_reset
     from elementalx_torch.kernels.matmul import route as k1_route
@@ -300,21 +315,30 @@ def main() -> None:
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     # ---- 2. K1 against torch.matmul (f32 accumulation) ----
-    # Each case names the core route() gives it (float32: "fma_async" where
-    # the operands can be read in 16-byte pieces, else "fma"; bfloat16:
-    # "wgmma", or "fma" for a misaligned operand) and must launch it.
+    # Each case names the core route() gives it (float32 and float64 with
+    # at most 16 columns: "skinny"; float32 with a unit stride in each
+    # operand: "fma_async", in 16-byte copies where the operands allow and
+    # in 4-byte ones otherwise; bfloat16: "wgmma", or "fma" for a
+    # misaligned operand; wider float64: "fma") and must launch it.
     # Tolerance: max|C - C_plain| <= rtol * max|C_plain|. float32: both
     # are FP32 FMA sums of K terms in possibly different orders, so 1e-5
-    # (about 100 eps) covers K up to 16384; bfloat16 output: the two f32
-    # accumulators may round to neighbouring bf16 values, 2^-7 apart
-    # relative to the largest entry, so 1e-2; bfloat16 into float32: exact
-    # products of bf16 values summed in f32 in another order (the tensor
-    # cores' blocks against cuBLAS's), 1e-4 at K <= 16384.
+    # (about 100 eps) covers K up to 16384; float64 1e-12; bfloat16
+    # output: the two f32 accumulators may round to neighbouring bf16
+    # values, 2^-7 apart relative to the largest entry, so 1e-2; bfloat16
+    # into float32: exact products of bf16 values summed in f32 in another
+    # order (the tensor cores' blocks against cuBLAS's), 1e-4 at K <=
+    # 16384. Every "fma_async" result also equals the FMA core's bit for
+    # bit (the same fma chain over k for every entry), and the skinny
+    # route gives the same bits on a second run.
     # The history case as the Cholesky gives it: rows of an n x n buffer
-    # times the .mH view of the panel's rows.
+    # times the .mH view of the panel's rows. The skinny case as the dist
+    # step's SUMMA_C gives it: a 128-column k-panel of an 8192 x 8192 A
+    # block times 128 rows of the (8192 x 2) B block.
     def k1_counts():
         return {core: getattr(matmul, f"launches_{core}")
                 for core in K1_CORES}
+
+    k1_module = sys.modules[matmul.__module__]
 
     def history(dt):
         buf = randn(16384, 16384, dtype=dt)
@@ -331,17 +355,24 @@ def main() -> None:
         ("bench bf16", lambda: (randn(16384, 16384, dtype=torch.bfloat16),
                                 randn(16384, 16384, dtype=torch.bfloat16)),
          None, "wgmma", 1e-2, PEAK_BF16),
-        ("ragged f32", lambda: (randn(1000, 777), randn(777, 1001)), None,
-         "fma", 1e-5, PEAK_FP32),
-        ("ragged transposed f32",
-         lambda: (randn(777, 1000).mT, randn(1001, 777).mT), None, "fma",
+        ("dist step SUMMA_C k-panel f32",
+         lambda: (randn(8192, 8192)[:, 128:256], randn(8192, 2)[256:384]),
+         None, "skinny", 1e-5, PEAK_FP32),
+        ("ragged f32 (rows of 777 floats)",
+         lambda: (randn(1000, 777), randn(777, 1001)), None, "fma_async",
          1e-5, PEAK_FP32),
+        ("ragged transposed f32",
+         lambda: (randn(777, 1000).mT, randn(1001, 777).mT), None,
+         "fma_async", 1e-5, PEAK_FP32),
+        ("f64 2048^3", lambda: (randn(2048, 2048, dtype=torch.float64),
+                                randn(2048, 2048, dtype=torch.float64)),
+         None, "fma", 1e-12, PEAK_FP64),
         ("misaligned bf16 (rows of 258 bytes)",
          lambda: (randn(257, 129, dtype=torch.bfloat16),
                   randn(129, 65, dtype=torch.bfloat16)), None, "fma", 1e-2,
          PEAK_FP32),
     ]
-    k1_main = {}
+    k1_main, k1_case = {}, {}
     for name, make, out_dt, core, rtol, peak in k1_cases:
         a, b = make()
         M, K = a.shape
@@ -358,7 +389,40 @@ def main() -> None:
         scale = ref.double().abs().max().item()
         require(err <= rtol * scale,
                 f"K1 {name}: max_abs_err {err} > {rtol} * {scale}")
-        iters = 2 if M * N * K > 1e12 else 10
+        same = ""
+        if core == "fma_async":
+            require(torch.equal(c, k1_launch("fma", a, b, torch.float32)),
+                    f"K1 {name}: the pipeline differs from the FMA core")
+            same = ", equal to the FMA core bit for bit"
+            if k1_module.tma_unit_dim(a) is None or \
+                    k1_module.tma_unit_dim(b) is None:
+                # operands that only 4-byte copies can read: the pipeline
+                # and the FMA core in turns
+                pipe_ms, fma_ms = time_pair(
+                    lambda: matmul(a, b),
+                    lambda: k1_launch("fma", a, b, torch.float32), 10)
+                same += (f" (in turns: pipeline {pipe_ms:.4f} ms, FMA core "
+                         f"{fma_ms:.4f} ms)")
+        if core == "skinny":
+            require(torch.equal(c, matmul(a, b)),
+                    f"K1 {name}: two runs give different bits")
+            # a call costs more host time than device time here: the
+            # device's own time from a CUDA graph of 50 calls, the kernel
+            # and torch.matmul each
+            graph_ms = []
+            for fn in (lambda: matmul(a, b), lambda: torch.matmul(a, b)):
+                graph = torch.cuda.CUDAGraph()
+                fn()
+                sync()
+                with torch.cuda.graph(graph):
+                    for _ in range(50):
+                        fn()
+                graph_ms.append(time_ms(graph.replay, 5) / 50)
+                del graph
+            same = (f", the same bits on a second run (replayed from a CUDA "
+                    f"graph: kernel {graph_ms[0]:.4f} ms, torch.matmul "
+                    f"{graph_ms[1]:.4f} ms a call)")
+        iters = 2 if M * N * K > 1e12 else (50 if M * N * K < 1e8 else 10)
         ms, plain_ms = time_pair(lambda: matmul(a, b, out_dtype=out_dt),
                                  lambda: matmul_plain(a, b, out_dtype=out_dt),
                                  iters)
@@ -370,12 +434,13 @@ def main() -> None:
                   + c.element_size() * M * N)
         bound = roofline(2 * M * N * K, nbytes, peak)
         print(f"K1 {name} ({M}x{K})x({K}x{N}) on {core}: max_abs_err "
-              f"{err:.3e} (tol {rtol} x {scale:.3e})  kernel {ms:.4f} ms "
-              f"({tf:.2f} TFLOP/s, {bound[0] / ms:.1%} of the {bound[1]} "
-              f"bound {bound[0]:.4f} ms)  plain {plain_ms:.4f} ms  "
-              f"torch.matmul {lib_ms:.4f} ms (kernel / library "
+              f"{err:.3e} (tol {rtol} x {scale:.3e}){same}  kernel "
+              f"{ms:.4f} ms ({tf:.2f} TFLOP/s, {bound[0] / ms:.1%} of the "
+              f"{bound[1]} bound {bound[0]:.4f} ms)  plain {plain_ms:.4f} ms"
+              f"  torch.matmul {lib_ms:.4f} ms (kernel / library "
               f"{ms / lib_ms:.3f})")
         k1_main.setdefault(core, (err, ms, plain_ms, lib_ms, bound))
+        k1_case.setdefault(core, f"{name} ({M}x{K})x({K}x{N})")
         del a, b, c, ref
     # ---- 3. K3a against torch.linalg.cholesky_ex + triangular inverse ----
     # Tolerance: max|out - plain| <= 1e-5 * max|plain| in float32; the
@@ -411,11 +476,34 @@ def main() -> None:
             # read once, l11 and invLH written once
             k3_main = (err, ms, plain_ms, roofline(2 * w ** 3 / 3, 12 * w * w))
 
+    # From here on every K1 launch on the FMA core is named by its operands
+    # (fma_named), and the float64 runs of the slices against the CPU
+    # count their K1 launches by core (f64_k1): float64 of more than 16
+    # columns is what stays on the FMA core.
+    fma_named, f64_k1 = {}, {}
+
+    def k1_launch_named(core, a_, b_, out_dtype):
+        if core == "fma":
+            key = (f"{str(a_.dtype)[6:]} ({a_.shape[0]}x{a_.shape[1]})x"
+                   f"({b_.shape[0]}x{b_.shape[1]}) strides "
+                   f"{tuple(a_.stride())} {tuple(b_.stride())}")
+            fma_named[key] = fma_named.get(key, 0) + 1
+        return k1_launch(core, a_, b_, out_dtype)
+
+    k1_module._launch = k1_launch_named
+
+    def f64_run(name, fn):
+        k1_reset()
+        out = fn()
+        sync()
+        f64_k1[name] = {"K1 cores": k1_counts()}
+        return out
+
     # ---- 4. the slice ----
     # A small float64 problem on the card against the same step on the
     # CPU, where every kernel wrapper takes its plain version.
     step, (a, b) = entry(n=300, nrhs=5, dtype=torch.float64, device=dev)
-    x_gpu, _ = step(a, b)
+    x_gpu, _ = f64_run("HPD n=300", lambda: step(a, b))
     x_cpu, _ = hpd_solve_step(a.cpu(), b.cpu())
     diff = (x_gpu.cpu() - x_cpu).abs().max().item()
     require(diff <= 1e-10 * x_cpu.abs().max().item(),
@@ -560,7 +648,7 @@ def main() -> None:
 
     # ---- 6. the LU slice ----
     a, b = make_lu_problem(300, 5, dtype=torch.float64, device=dev)
-    x_gpu, _ = linear_solve_step(a, b)
+    x_gpu, _ = f64_run("LU n=300", lambda: linear_solve_step(a, b))
     x_cpu, _ = linear_solve_step(a.cpu(), b.cpu())
     diff = (x_gpu.cpu() - x_cpu).abs().max().item()
     require(diff <= 1e-10 * x_cpu.abs().max().item(),
@@ -650,10 +738,14 @@ def main() -> None:
                                     f"|[1;v]|^2 tau - 2 = {unit}")
         ms, plain_ms = time_pair(lambda: latrd_panel(a, k0, w, 128),
                                  lambda: latrd_panel_plain(a, k0, w, 128), 3)
+        same = all(torch.equal(o, o2)
+                   for o, o2 in zip(out, latrd_panel(a, k0, w, 128)))
+        require(same, f"K5 ({M},{k0},{w}): two runs give different bits")
         print(f"K5 latrd panel (M={M}, k0={k0}, w={w}) {str(dt)[6:]}: "
               f"max_abs_err P {errs[0]:.3e} W {errs[1]:.3e} tau "
               f"{errs[2]:.3e} (rtol {rtol}), max|(|[1;v]|^2 tau - 2)| "
-              f"{unit:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+              f"{unit:.2e}, the same bits on a second run  kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
         # per column j: the symv over the trailing order m_j = m0 - j - 1
         # (2 m_j^2) and the V/W corrections (8 m_j j). The bound: those
         # operations, and each byte read once (the trailing lower
@@ -824,7 +916,8 @@ def main() -> None:
 
     # ---- 8. the HermitianEig slice ----
     h = make_eig_problem(300, dtype=torch.float64, device=dev, seed=1)
-    w_gpu, q_gpu, _ = hermitian_eig_step(h)
+    w_gpu, q_gpu, _ = f64_run("HermitianEig n=300",
+                              lambda: hermitian_eig_step(h))
     w_cpu, q_cpu, _ = hermitian_eig_step(h.cpu())
     dw = (w_gpu.cpu() - w_cpu).abs().max().item()
     require(dw <= 1e-10 * w_cpu.abs().max().item(),
@@ -1302,7 +1395,8 @@ def main() -> None:
     # max|X|.
     ga, gb = make_gendef_problem(300, dtype=torch.float64, device=dev, seed=2)
     for pencil in ("AXBX", "ABX", "BAX"):
-        wg, xg, rg = gen_def_eig_step(ga, gb, pencil)
+        wg, xg, rg = f64_run(f"GenDefEig {pencil} n=300",
+                             lambda: gen_def_eig_step(ga, gb, pencil))
         wc, xc, rc = gen_def_eig_step(ga.cpu(), gb.cpu(), pencil)
         dw = (wg.cpu() - wc).abs().max().item()
         xg = xg.cpu()
@@ -1947,6 +2041,13 @@ def main() -> None:
             and dist_launches["K8 cores"]["fma_async"] == 1
             and dist_launches["K9"]["axpby"] == 4,
             f"dist step: the path did not launch its kernels: {dist_launches}")
+    # the SUMMA products of two and four columns (SUMMA_C's 128 k-panels on
+    # each of the four positions, SUMMA_A's and SUMMA_B's one a position)
+    # take K1's skinny route, none the FMA core
+    require(dist_launches["K1 cores"]["skinny"] >= 512
+            and dist_launches["K1 cores"]["fma"] == 0,
+            f"dist step: the SUMMA products left the skinny route: "
+            f"{dist_launches}")
     wall, by_name, count = device_profile(
         lambda: dist_gemm_step(a, b, x, gm, g22))
     busy = sum(by_name.values())
@@ -2047,7 +2148,8 @@ def main() -> None:
         a, b, x, gm = make_dist_problem(300, grid_, torch.float64,
                                         seed=5)
         x = x + 1e-3 * randn(*x.shape, dtype=torch.float64)
-        card = dist_gemm_step(a, b, x, gm, grid_)
+        card = f64_run(f"dist step n=300 on {grid_}",
+                       lambda: dist_gemm_step(a, b, x, gm, grid_))
         cpu_grid_ = Et.Grid(["cpu"] * grid_.size, height=grid_.height)
         host = dist_gemm_step(a.cpu(), b.cpu(), x.cpu(), gm.cpu(), cpu_grid_)
         err, scale = blocks_err([t_.cpu() for t_ in card[2]], host[2])
@@ -2078,37 +2180,65 @@ def main() -> None:
 
     # K1's launches by core over every main-path run that reads them (the
     # bf16 ones are the bf16-storage Cholesky's history products), K8's
-    # over the dist step and the ring_summa entry
+    # over the dist step and the ring_summa entry. The float64 runs
+    # against the CPU are off the main paths: their K1 launches are
+    # printed apart and count in no row of the kernels line.
     k1_paths = ([launches, lu_launches, fused_launches, gd_launches,
                  dist_launches] + list(eig_launches.values())
                 + list(ls_runs.values()))
     k1_launches = {core: sum(r["K1 cores"][core] for r in k1_paths)
                    + sum(c[core] for c in chol16.values())
                    for core in K1_CORES}
+    k1_f64 = {core: sum(r["K1 cores"][core] for r in f64_k1.values())
+              for core in K1_CORES}
     k8_launches = {core: dist_launches["K8 cores"][core]
                    + sum(c[core] for c in k8_entry.values())
                    for core in K8_CORES}
     require(k1_launches["wgmma"] > 0 and k1_launches["fma_async"] > 0
+            and k1_launches["skinny"] > 0
             and k8_launches["wgmma"] > 0 and k8_launches["fma_async"] > 0,
             f"a K1 or K8 core never launched on the paths: K1 {k1_launches}"
             f", K8 {k8_launches}")
-    print(f"K1 launches by core on the main paths {k1_launches}; K8 "
+    print(f"K1 launches by core on the main paths: {k1_launches}; K8 "
           f"{k8_launches}")
+    print(f"K1 launches by core in the float64 runs against the CPU (off "
+          f"the main paths): {k1_f64} "
+          f"({', '.join(f'{k}: {v}' for k, v in f64_k1.items())})")
+    print(f"K1 launches on the FMA core from phase 4 on, by operands: "
+          + ("; ".join(f"{k}: {v}" for k, v in fma_named.items())
+             or "none"))
+    k1_module._launch = k1_launch
 
     csrc = "elementalx_torch/kernels/csrc/"
     k1_rows = [
-        ("fma_async", "K1 local GEMM f32 (matmul; FP32 FMA core on the "
-                      "cp.async pipeline, gemm_f32_pipe.cuh)"),
-        ("wgmma", "K1 local GEMM bf16 (matmul; tensor-core core, "
-                  "gemm_sm90.cuh)"),
-        ("fma", "K1 local GEMM, FMA core for operands not read in 16-byte "
-                "pieces and float64 (matmul; gemm_tile.cuh)"),
+        ("fma_async", "matmul.cu",
+         "K1 local GEMM f32 (matmul; FP32 FMA core on the cp.async "
+         "pipeline, gemm_f32_pipe.cuh)"),
+        ("wgmma", "matmul.cu", "K1 local GEMM bf16 (matmul; tensor-core "
+                               "core, gemm_sm90.cuh)"),
+        ("skinny", "gemm_skinny.cu",
+         "K1 local GEMM, skinny route: f32/f64 C of at most 16 columns "
+         "(matmul; A streamed once)"),
+        ("fma", "matmul.cu",
+         "K1 local GEMM, FMA core for float64 and operands the fast cores "
+         "cannot read (matmul; gemm_tile.cuh)"),
     ]
     kernels = [
-        row(name, csrc + "matmul.cu", "elementalx/kernels/matmul.py:39",
+        row(name, csrc + src, "elementalx/kernels/matmul.py:39",
             k1_launches[core], k1_main[core], k1_main[core][3])
-        for core, name in k1_rows if k1_launches[core] > 0
-    ] + [
+        for core, src, name in k1_rows if k1_launches[core] > 0
+    ]
+    # A K1 core that the main paths did not launch (the FMA core, where
+    # only the float64 runs against the CPU reach it) keeps a row of its
+    # own, with its phase 2 time, on a line apart from the kernels line.
+    off_path = [
+        row(f"{name}: off the main paths; the time of phase 2's "
+            f"{k1_case[core]}", csrc + src,
+            "elementalx/kernels/matmul.py:39", 0, k1_main[core],
+            k1_main[core][3])
+        for core, src, name in k1_rows if k1_launches[core] == 0
+    ]
+    kernels += [
         row("K2 masked rank-k update (masked_rank_k)", csrc + "trrk.cu",
             "elementalx/kernels/trrk.py:45", blas_launches["K2"], k2_main),
         row("K3a Cholesky diagonal block (potrf_block_inv)",
@@ -2153,6 +2283,7 @@ def main() -> None:
         for name, line in (("axpby", 56), ("scale", 67), ("hadamard", 78),
                            ("fill", 88), ("transpose", 115))
     ]
+    print(json.dumps({"off_path_kernels": off_path}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -112,12 +112,16 @@ __device__ __forceinline__ T ldg(const T* p) {
 }
 
 // Row and column, within the tile, of entry (i, j) of this thread's
-// register block.
-template <typename Acc>
+// register block. kBM: the tile's height (gemm_f32_pipe.cuh also runs
+// 64-row tiles), with the same thread rows, so kTileTM<Acc, kBM> rows a
+// thread.
+template <typename Acc, int kBM = Tile<Acc>::BM>
+constexpr int kTileTM = kBM * Tile<Acc>::TM / Tile<Acc>::BM;
+template <typename Acc, int kBM = Tile<Acc>::BM>
 __device__ __forceinline__ int tile_row(int i) {
-  constexpr int TH = Tile<Acc>::TM / 2;
+  constexpr int TH = kTileTM<Acc, kBM> / 2;
   const int ty = threadIdx.x / (Tile<Acc>::BN / Tile<Acc>::TN);
-  return i < TH ? ty * TH + i : Tile<Acc>::BM / 2 + ty * TH + (i - TH);
+  return i < TH ? ty * TH + i : kBM / 2 + ty * TH + (i - TH);
 }
 template <typename Acc>
 __device__ __forceinline__ int tile_col(int j) {
@@ -232,15 +236,17 @@ __device__ __forceinline__ void tile_product(
 }
 
 // C[m0:, n0:] = alpha * acc + beta * C on the tile (C read only when beta
-// is not 0), within M x N and, with g.lower_only, on column <= row.
-template <typename TOut, typename Acc, bool kL2Only = false>
+// is not 0), within M x N and, with g.lower_only, on column <= row; kBM
+// as in tile_row.
+template <typename TOut, typename Acc, bool kL2Only = false,
+          int kBM = Tile<Acc>::BM>
 __device__ __forceinline__ void tile_store(
     const GemmArgs& g, TOut* C, int m0, int n0,
-    const Acc (&acc)[Tile<Acc>::TM][Tile<Acc>::TN]) {
+    const Acc (&acc)[kTileTM<Acc, kBM>][Tile<Acc>::TN]) {
   const Acc alpha = static_cast<Acc>(g.alpha), beta = static_cast<Acc>(g.beta);
 #pragma unroll
-  for (int i = 0; i < Tile<Acc>::TM; ++i) {
-    const int r = m0 + tile_row<Acc>(i);
+  for (int i = 0; i < kTileTM<Acc, kBM>; ++i) {
+    const int r = m0 + tile_row<Acc, kBM>(i);
     if (r >= g.M) continue;
 #pragma unroll
     for (int j = 0; j < Tile<Acc>::TN; ++j) {

@@ -1,5 +1,7 @@
 // K1: the port's local GEMM, C = A * B, on three cores chosen by the
-// wrapper (kernels/matmul.py:route) from dtype, shape and alignment alone.
+// wrapper (kernels/matmul.py:route) from dtype, shape and alignment alone;
+// products of at most 16 columns in float32 and float64 take a fourth,
+// the skinny route of gemm_skinny.cu.
 //
 // Replaces the TPU kernel elementalx/kernels/matmul.py:matmul_pallas
 // (line 39; body _matmul_kernel, pallas_call at line 58): a (M/bm, N/bn,
@@ -24,13 +26,17 @@
 //     arithmetic, fed by cp.async through four 32-deep shared-memory
 //     stages, so FFMAs fill five of six instruction slots of the main
 //     loop where the FMA core's staging through registers left one in
-//     two; the result is the FMA core's bit for bit.
-//   - float64, and float32 or bfloat16 operands that cannot be read in
-//     16-byte pieces (elx_matmul): the FMA core of gemm_tile.cuh, register
-//     blocking 8x8 per thread fed from two shared-memory stages through
-//     registers; it takes any strides and masks ragged edges.
+//     two; the result is the FMA core's bit for bit. Each operand needs
+//     one unit stride: 16-byte copies where its base and other stride
+//     allow, else 4-byte ones; 64 x 128 tiles where 128 x 128 ones would
+//     leave SMs idle.
+//   - float64, bfloat16 operands that cannot be read in 16-byte pieces
+//     and operands with no unit stride (elx_matmul): the FMA core of
+//     gemm_tile.cuh, register blocking 8x8 per thread fed from two
+//     shared-memory stages through registers; it takes any strides and
+//     masks ragged edges.
 //
-// The two fast cores need each operand's base 16-byte aligned, one unit
+// The tensor-core core needs each operand's base 16-byte aligned, one unit
 // stride and the other a multiple of 16 bytes.
 #include "gemm_f32_pipe.cuh"
 #include "gemm_sm90.cuh"
@@ -129,22 +135,24 @@ extern "C" int elx_matmul_wgmma(int dtype_out, int M, int N, int K,
 }
 
 // The float32 FMA core on the cp.async pipeline: float32 A, B and C, each
-// operand with a 16-byte aligned base, one unit stride (a_m_major: sam,
-// else sak; b_n_major: sbn, else sbk) and the other a multiple of 4. The
-// result equals elx_matmul's bit for bit.
+// operand with one unit stride (a_m_major: sam, else sak; b_n_major: sbn,
+// else sbk). narrow = 0: both bases 16-byte aligned and the other strides
+// multiples of 4 (16-byte copies); narrow = 1: any base and stride (4-byte
+// copies). The result equals elx_matmul's bit for bit either way.
 extern "C" int elx_matmul_fma_async(int M, int N, int K, const void* A,
                                     long long sam, long long sak,
                                     int a_m_major, const void* B,
                                     long long sbk, long long sbn,
                                     int b_n_major, void* C, long long scm,
-                                    long long scn, void* stream) {
+                                    long long scn, int narrow, void* stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   const elx::GemmArgs g{M, N, K, A, sam, sak, 0, B, sbk, sbn, 0, C,
                         scm, scn, 0, 1.0, 0.0, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool n = narrow != 0;
   if (a_m_major)
-    return b_n_major ? elx::pipe::launch<false, false>(g, s)
-                     : elx::pipe::launch<false, true>(g, s);
-  return b_n_major ? elx::pipe::launch<true, false>(g, s)
-                   : elx::pipe::launch<true, true>(g, s);
+    return b_n_major ? elx::pipe::launch<false, false>(g, s, n)
+                     : elx::pipe::launch<false, true>(g, s, n);
+  return b_n_major ? elx::pipe::launch<true, false>(g, s, n)
+                   : elx::pipe::launch<true, true>(g, s, n);
 }

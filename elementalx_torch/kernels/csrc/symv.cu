@@ -140,7 +140,7 @@ __global__ void __launch_bounds__(kThreads)
   const int n = g.n;
   elx::SymvTiles<T> tiles(smem, &map, 0, c0, n);
   long long lo, hi;
-  tiles.range(0, b, G, lo, hi);
+  tiles.range(b, G, lo, hi);
   tiles.prefetch(lo, hi);
   // the block zeroes the rows its tiles touch (all of them when it has no
   // tile, so that the sum below may read its partial)
@@ -149,9 +149,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = tid; r < ext; r += kThreads) yp[r] = T(0);
   __syncthreads();  // the barriers' initialisation; yp zero
   const T* v = g.v;
-  tiles.walk([v](int r) { return v[r]; }, 0, lo, hi, yp);
+  tiles.walk([v](int r) { return v[r]; }, lo, hi, yp);
   grid.sync();
-  tiles.sum_partials(g.ypart, n, 0, 0, g.y);
+  tiles.sum_partials(g.ypart, n, g.y);
 }
 
 // Blocks of a cooperative launch of `kernel` with `smem` bytes of dynamic

@@ -1,14 +1,14 @@
-// The symv units shared by K5 (latrd.cu) and K7 (symv.cu).
+// The symv units of K7 (symv.cu); K5 (latrd.cu) runs SymvTiles' ring and
+// tile geometry with a walk of its own.
 //
 // Both add a share of y = H v, H = tril(A) + tril(A, -1)^T, into a block's
 // partial y (yp): A[r, c] v[c] into yp[r] for c <= r (row sums) and
 // A[r, c] v[r] into yp[c] for c < r (column sums), reading only entries
 // with c <= r of a symmetric A (unit column stride). v is read through an
-// accessor, so K7 reads a vector and K5 forms its Householder vector on
-// the fly. Every sum has a fixed order and no float atomics are used, so
+// accessor. Every sum has a fixed order and no float atomics are used, so
 // the same inputs give the same bits.
 //
-// SymvTiles, the unit both kernels run on the H100: square kSymvT x kSymvT
+// SymvTiles, the unit K7 runs on the H100: square kSymvT x kSymvT
 // tiles of the lower triangle stream into a ring of shared-memory stages,
 // each filled by one TMA box and guarded by an mbarrier; one thread keeps
 // kStages - 1 boxes in flight while the block works on the current one
@@ -117,6 +117,36 @@ constexpr int kSymvGR = kSymvT / kSymvGroups;    // rows of a group (16)
 #endif
 constexpr int kSymvRing = ELX_SYMV_RING;         // ring bytes of a block
 
+// One step of the butterfly reduce-scatter: lanes with bit O set keep
+// the upper O of the first 2 O values, the others the lower O, each
+// added to its partner's. A template, so that every index is a constant
+// and the values stay in registers.
+template <int O, typename U>
+__device__ __forceinline__ void scatter_step(U (&acc)[kSymvGR], int lane) {
+  const bool upper = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const U send = upper ? acc[i] : acc[i + O];
+    const U keep = upper ? acc[i + O] : acc[i];
+    acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// A tile's row sums, kSymvGR rows a thread, summed over the warp's 32
+// columns in a fixed pattern: lane l ends with row l % 16 in acc[0]. U is
+// the sum's type (K5 sums float32 tiles in float64).
+template <typename U>
+__device__ __forceinline__ void warp_row_sums(U (&acc)[kSymvGR], int lane) {
+#pragma unroll
+  for (int i = 0; i < kSymvGR; ++i)
+    acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 16);
+  static_assert(kSymvGR == 16, "the steps below reduce 16 rows");
+  scatter_step<8>(acc, lane);
+  scatter_step<4>(acc, lane);
+  scatter_step<2>(acc, lane);
+  scatter_step<1>(acc, lane);
+}
+
 template <typename T>
 struct SymvTiles {
   static constexpr int kTileBytes = kSymvT * kSymvT * sizeof(T);
@@ -186,19 +216,16 @@ struct SymvTiles {
     J = static_cast<int>(t - i * (i + 1) / 2);
   }
 
-  // Block b's share [lo, hi) of the tiles from strip I0 on, dealt in
-  // contiguous ranges over G blocks.
-  __device__ __forceinline__ void range(int I0, int b, int G, long long& lo,
+  // Block b's share [lo, hi) of the tiles, dealt in contiguous ranges
+  // over G blocks.
+  __device__ __forceinline__ void range(int b, int G, long long& lo,
                                         long long& hi) const {
-    const long long first = strip_start(I0), all = ntiles - first;
-    lo = first + all * b / G;
-    hi = first + all * (b + 1) / G;
+    lo = ntiles * b / G;
+    hi = ntiles * (b + 1) / G;
   }
-  // The block whose share (range(I0, ...)) holds tile t >= the first
-  // tile of strip I0.
-  __device__ __forceinline__ int owner(long long t, int I0, int G) const {
-    const long long first = strip_start(I0), all = ntiles - first;
-    return static_cast<int>(((t - first + 1) * G - 1) / all);
+  // The block whose share (range()) holds tile t.
+  __device__ __forceinline__ int owner(long long t, int G) const {
+    return static_cast<int>(((t + 1) * G - 1) / ntiles);
   }
   // Local rows [0, extent) of yp that the share [lo, hi) touches (row
   // sums of its strips, column sums of the columns left of them).
@@ -226,56 +253,31 @@ struct SymvTiles {
       issue(lo + k, (used + static_cast<unsigned>(k)) % kStages);
   }
 
-  // One step of the butterfly reduce-scatter: lanes with bit O set keep
-  // the upper O of the first 2 O values, the others the lower O, each
-  // added to its partner's. A template, so that every index is a constant
-  // and rowacc stays in registers.
-  template <int O>
-  __device__ __forceinline__ static void scatter_step(T (&acc)[kSymvGR],
-                                                      int lane) {
-    const bool upper = (lane & O) != 0;
-#pragma unroll
-    for (int i = 0; i < O; ++i) {
-      const T send = upper ? acc[i] : acc[i + O];
-      const T keep = upper ? acc[i + O] : acc[i];
-      acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-    }
-  }
-
   // Row sums of strip I (rowacc of the thread's 16 rows over its column)
   // reduced over the tile's 64 columns, added into yp.
   __device__ __forceinline__ void flush_rows(T (&rowacc)[kSymvGR], int I,
-                                             int vec0, T* yp) const {
+                                             T* yp) const {
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-#pragma unroll
-    for (int i = 0; i < kSymvGR; ++i)
-      rowacc[i] += __shfl_xor_sync(0xffffffffu, rowacc[i], 16);
-    // over 16 lanes: lane l ends with row l % 16
-    static_assert(kSymvGR == 16, "the steps below reduce 16 rows");
-    scatter_step<8>(rowacc, lane);
-    scatter_step<4>(rowacc, lane);
-    scatter_step<2>(rowacc, lane);
-    scatter_step<1>(rowacc, lane);
+    warp_row_sums(rowacc, lane);
     if (lane < kSymvGR) srow[warp * kSymvGR + lane] = rowacc[0];
     __syncthreads();
     if (tid < kSymvT) {
       const int g = tid / kSymvGR, l = tid % kSymvGR;
       const int r = I * kSymvT - d + tid;
       if (r >= 0 && r < n)
-        yp[vec0 + r] += srow[2 * g * kSymvGR + l] +
-                        srow[(2 * g + 1) * kSymvGR + l];
+        yp[r] += srow[2 * g * kSymvGR + l] + srow[(2 * g + 1) * kSymvGR + l];
     }
   }
 
-  // After a grid barrier: y[vec0 + r] for the local rows r, kSymvT rows a
-  // block at a time, the sum of the G partials (ypart, lda apart, indexed
-  // like yp) in block order. The blocks before the owner of the first tile
-  // of r's strip touched no row of the strip (their partials there are
-  // zero and are skipped); rows of strips above I0 meet every block. Each
-  // quarter of the blocks is summed by one thread with eight loads in
-  // flight, the quarters in a fixed order. Uses the column-partial buffer.
+  // After a grid barrier: y[r] for the local rows r, kSymvT rows a block
+  // at a time, the sum of the G partials (ypart, lda apart, indexed like
+  // yp) in block order. The blocks before the owner of the first tile of
+  // r's strip touched no row of the strip (their partials there are zero
+  // and are skipped). Each quarter of the blocks is summed by one thread
+  // with eight loads in flight, the quarters in a fixed order. Uses the
+  // column-partial buffer.
   __device__ __forceinline__ void sum_partials(const T* ypart, long long lda,
-                                               int vec0, int I0, T* y) const {
+                                               T* y) const {
     constexpr int kQ = kSymvThreads / kSymvT;
     static_assert(kQ == 4, "four quarters");
     const int tid = threadIdx.x, G = gridDim.x, q = tid / kSymvT;
@@ -285,11 +287,11 @@ struct SymvTiles {
       T s = T(0);
       if (r < n) {
         const int I = strip_of(r);
-        const int bf = I < I0 ? 0 : owner(strip_start(I), I0, G);
+        const int bf = owner(strip_start(I), G);
         const int cnt = G - bf;
         const int b1 = bf + cnt * (q + 1) / kQ;
         int bb = bf + cnt * q / kQ;
-        const T* col = ypart + vec0 + r;
+        const T* col = ypart + r;
         T acc[8] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
         for (; bb + 8 <= b1; bb += 8) {
 #pragma unroll
@@ -304,17 +306,17 @@ struct SymvTiles {
       red[q * kSymvT + tid % kSymvT] = s;
       __syncthreads();
       if (tid < kSymvT && r < n)
-        y[vec0 + r] = (red[tid] + red[kSymvT + tid]) +
-                      (red[2 * kSymvT + tid] + red[3 * kSymvT + tid]);
+        y[r] = (red[tid] + red[kSymvT + tid]) +
+               (red[2 * kSymvT + tid] + red[3 * kSymvT + tid]);
       __syncthreads();
     }
   }
 
-  // Add the tiles [lo, hi) into yp (indexed from vec0, like v), their
-  // first min(kStages, hi - lo) loads started by prefetch(lo, hi). Every
-  // thread of the block calls it.
+  // Add the tiles [lo, hi) into yp, their first min(kStages, hi - lo)
+  // loads started by prefetch(lo, hi). Every thread of the block calls
+  // it.
   template <typename VecAt>
-  __device__ __forceinline__ void walk(const VecAt& v, int vec0, long long lo,
+  __device__ __forceinline__ void walk(const VecAt& v, long long lo,
                                        long long hi, T* yp) {
     if (lo >= hi) return;
     const int tid = threadIdx.x, c = tid % kSymvT, g = tid / kSymvT;
@@ -324,20 +326,20 @@ struct SymvTiles {
     T rowacc[kSymvGR], vi[kSymvGR];
     for (long long t = lo; t < hi; ++t) {
       if (I != cur) {
-        if (cur >= 0) flush_rows(rowacc, cur, vec0, yp);
+        if (cur >= 0) flush_rows(rowacc, cur, yp);
         cur = I;
 #pragma unroll
         for (int i = 0; i < kSymvGR; ++i) {
           const int r = I * kSymvT - d + g * kSymvGR + i;
-          vi[i] = r >= 0 && r < n ? v(vec0 + r) : T(0);
+          vi[i] = r >= 0 && r < n ? v(r) : T(0);
           rowacc[i] = T(0);
         }
       }
       const int cj = J * kSymvT - d + c;
       const bool col_in = cj >= 0 && cj < n;
-      const T vj = col_in ? v(vec0 + cj) : T(0);
+      const T vj = col_in ? v(cj) : T(0);
       T old = T(0);
-      if (g == 0 && col_in) old = __ldcg(yp + vec0 + cj);
+      if (g == 0 && col_in) old = __ldcg(yp + cj);
       const unsigned s = used % kStages;
       tma::mbar_wait(full_s + 8 * s, (used / kStages) & 1u);
       const T* tile = ring + s * (kSymvT * kSymvT) + g * kSymvGR * kSymvT + c;
@@ -370,15 +372,15 @@ struct SymvTiles {
       __syncthreads();  // stage s read by all; column partials written
       if (tid == 0 && t + kStages < hi) issue(t + kStages, s);
       if (g == 0 && col_in)
-        yp[vec0 + cj] = old + ((sc[c] + sc[kSymvT + c]) +
-                               (sc[2 * kSymvT + c] + sc[3 * kSymvT + c]));
+        yp[cj] = old + ((sc[c] + sc[kSymvT + c]) +
+                        (sc[2 * kSymvT + c] + sc[3 * kSymvT + c]));
       ++used;
       if (++J > I) {
         ++I;
         J = 0;
       }
     }
-    flush_rows(rowacc, cur, vec0, yp);
+    flush_rows(rowacc, cur, yp);
   }
 };
 

@@ -172,26 +172,87 @@ def _bf16(*shape):
     (lambda: (torch.zeros(64, 128), torch.zeros(128, 64)), "fma_async"),
     (lambda: (torch.zeros(128, 64).mT, torch.zeros(64, 128).mT),
      "fma_async"),
-    (lambda: (torch.zeros(1000, 777), torch.zeros(777, 1001)), "fma"),
+    (lambda: (torch.zeros(1000, 777), torch.zeros(777, 1001)),
+     "fma_async"),
     (lambda: (torch.zeros(777, 1000).mT, torch.zeros(1001, 777).mT),
-     "fma"),
+     "fma_async"),
     (lambda: (torch.zeros(64, 128, dtype=torch.float64),
               torch.zeros(128, 64, dtype=torch.float64)), "fma"),
+    # the dist step's SUMMA_C k-panel: a column slice of an 8192-wide A
+    # block times a (128 x 2) slice of B's rows (8 bytes apart)
+    (lambda: (torch.empty(8192, 8192)[:, 128:256],
+              torch.empty(8192, 2)[256:384]), "skinny"),
+    (lambda: (torch.empty(8192, 128), torch.empty(8192, 2)[:128]),
+     "skinny"),
+    (lambda: (torch.zeros(128, 126), torch.zeros(2, 126).mT), "skinny"),
+    (lambda: (torch.zeros(300, 50, dtype=torch.float64),
+              torch.zeros(50, 16, dtype=torch.float64)), "skinny"),
+    (lambda: (torch.zeros(300, 50), torch.zeros(50, 17)[:, 1:]), "skinny"),
+    (lambda: (torch.zeros(64, 0), torch.zeros(0, 16)), "skinny"),
+    (lambda: (torch.zeros(300, 50), torch.zeros(50, 17)), "fma_async"),
+    (lambda: (_bf16(64, 128), _bf16(128, 16)), "wgmma"),
+    (lambda: (torch.zeros(64, 256)[:, ::2], torch.zeros(128, 64)), "fma"),
+    (lambda: (torch.zeros(64, 128), torch.zeros(128, 128)[:, ::2]), "fma"),
+    (lambda: (torch.zeros(1000, 777, dtype=torch.float64),
+              torch.zeros(777, 1001, dtype=torch.float64)), "fma"),
 ], ids=["bf16-contiguous", "bf16-A.mT", "bf16-B.mH", "bf16-both-mT",
         "bf16-history-slices", "bf16-K0", "bf16-ragged-rows",
         "bf16-odd-stride", "bf16-offset-base", "bf16-B-offset",
         "f32-contiguous", "f32-both-mT", "f32-ragged-rows",
-        "f32-ragged-mT", "f64"])
+        "f32-ragged-mT", "f64", "f32-summa-c-owner-panel",
+        "f32-summa-c-broadcast-panel", "f32-latrd-B.mT", "f64-N16",
+        "f32-N16-offset", "f32-K0-N16", "f32-N17", "bf16-N16",
+        "f32-A-no-unit-stride", "f32-B-no-unit-stride", "f64-ragged"])
 def test_matmul_route(operands, core):
-    """K1's core follows from dtype, shape and alignment alone: bfloat16
-    and float32 operands that can be read in place in 16-byte pieces (a
-    16-byte aligned base, one unit stride, the other a multiple of 16
-    bytes; any when K = 0) take the tensor cores and the FP32 pipeline;
-    the rest, and float64, the FMA core."""
+    """K1's core follows from dtype, shape and alignment alone: float32
+    and float64 products of at most 16 columns take the skinny route at
+    any strides; bfloat16 operands that can be read in place in 16-byte
+    pieces (a 16-byte aligned base, one unit stride, the other a multiple
+    of 16 bytes; any when K = 0) take the tensor cores, and float32
+    operands with a unit stride each the FP32 pipeline (4-byte copies
+    where 16-byte ones do not fit); the rest, and wider float64, the FMA
+    core."""
     from elementalx_torch.kernels.matmul import route
 
     a, b = operands()
     assert route(a, b) == core
+
+
+@pytest.mark.parametrize("operand,sms,plan", [
+    # the SUMMA_C panel: a warp a row, 16-byte loads, 1024 blocks >= 528
+    (lambda: torch.empty(8192, 8192)[:, 128:256], 132, (0, 1, 1, 128)),
+    # rows of 126 floats (504 bytes): a warp a row, 4-byte loads
+    (lambda: torch.zeros(128, 126), 132, (0, 0, 1, 126)),
+    (lambda: torch.zeros(1, 130)[:, 1:], 132, (0, 0, 1, 129)),
+    # SUMMA_A's (8192 x 8192): enough rows, no split
+    (lambda: torch.empty(8192, 8192), 132, (0, 1, 1, 8192)),
+    # few rows, long K: K cut into slices of a multiple of 128
+    (lambda: torch.empty(64, 100000), 132, (0, 1, 66, 1536)),
+    (lambda: torch.empty(64, 100000), 8, (0, 1, 4, 25088)),
+    # A.mT: a thread a row
+    (lambda: torch.empty(100000, 64).mT, 132, (1, 0, 157, 640)),
+    (lambda: torch.empty(300, 50, dtype=torch.float64).mT, 132,
+     (1, 0, 1, 300)),
+    (lambda: torch.zeros(64, 0), 132, (0, 0, 1, 1)),
+], ids=["summa-c", "ragged-rows", "offset-base", "summa-a", "split",
+        "split-8-sms", "mT-split", "f64-mT", "K0"])
+def test_skinny_plan(operand, sms, plan):
+    """The skinny route's launch follows from A's strides, alignment and
+    shape and the card's SM count alone; a split K covers K with slices
+    of a multiple of 128 k, at least 512, so that the row blocks times
+    the slices reach 4 blocks an SM."""
+    from elementalx_torch.kernels.matmul import skinny_plan
+
+    a = operand()
+    got = skinny_plan(a, sms)
+    assert got == plan
+    cols, _, S, kslice = got
+    K = a.shape[1]
+    assert S * kslice >= K and (S - 1) * kslice < max(K, 1)
+    if S > 1:
+        assert kslice % 128 == 0 and kslice >= 512
+        blocks = -(-a.shape[0] // (256 if cols else 8))
+        assert blocks < 4 * sms
 
 
 @pytest.mark.parametrize("dt,k,core", [
@@ -477,6 +538,129 @@ def test_latrd_plain_vs_xla_panel_f64():
         jnp.zeros((M - k0, w)), jnp.zeros((M,)), k0, w, M - k0))
     P, Wo, t = (x.numpy() for x in latrd_panel(torch.tensor(a), k0, w, 32))
     assert P.shape == (M, 32) and t.shape == (32,)
+    assert np.abs(P[k0:, :w] - at[:, :w]).max() < 1e-12 * np.abs(at).max()
+    assert np.abs(Wo[k0:, :w] - W).max() < 1e-12 * np.abs(W).max()
+    assert np.abs(t[:w] - tau[k0:k0 + w]).max() < 1e-12
+
+
+def _latrd_replay(a, k0, w, nb):
+    """K5's column schedule (csrc/latrd.cu) in plain torch, in K5's
+    contract: each column's w formed lazily at the start of the next
+    (p - coef v); acur from the row dots against W's and V's row gj, the
+    last of W's taken from p(gp) - coef; the panel dots from the partials
+    X^T acur below gp over the reflector's denominator plus X's row gp;
+    p = tau (y - V (W^T v) - W (V^T v)) with y from the symmetric trailing
+    block."""
+    M = a.shape[0]
+    rows = torch.arange(M)
+    Vr = a.new_zeros((M, nb))
+    Wr = a.new_zeros((M, nb))
+    P = a.new_zeros((M, nb))
+    Wout = a.new_zeros((M, nb))
+    tau = a.new_zeros((nb,))
+    low = torch.tril(a[k0:, k0:])
+    sym = low + torch.tril(a[k0:, k0:], -1).mT
+    pbuf = a.new_zeros((M,))
+    vprev = a.new_zeros((M,))
+    coef = a.new_zeros(())
+    s_pgp = a.new_zeros(())
+    for jl in range(w):
+        gj, gp = k0 + jl, k0 + jl + 1
+        if jl > 0:
+            wprev = pbuf - coef * vprev
+            Wr[k0:, jl - 1] = wprev[k0:]
+            Wout[k0:, jl - 1] = wprev[k0:]
+        sWg = Wr[gj, :jl].clone()
+        if jl > 0:
+            sWg[jl - 1] = s_pgp - coef
+        sVg = Vr[gj, :jl]
+        x = torch.where(rows >= gj, a[:, gj], a[gj, :])
+        acur = x - (Vr[:, :jl] @ sWg + Wr[:, :jl] @ sVg)
+        acur[:k0] = 0
+        below = rows > gp
+        sigma2 = (acur[below] ** 2).sum()
+        pdW = Wr[below, :jl].mT @ acur[below]
+        pdV = Vr[below, :jl].mT @ acur[below]
+        alpha = acur[gp]
+        norm = torch.sqrt(alpha * alpha + sigma2)
+        beta0 = norm if alpha < 0 else -norm
+        trivial = bool(sigma2 == 0)
+        denom = a.new_ones(()) if trivial else alpha - beta0
+        t = a.new_zeros(()) if trivial else (beta0 - alpha) / (
+            beta0 if beta0 != 0 else 1)
+        beta = alpha if trivial else beta0
+        v = torch.where(below, acur / denom, a.new_zeros(()))
+        v[gp] = 1
+        Vr[:, jl] = v
+        P[k0:, jl] = torch.where(rows > gp, v, torch.where(
+            rows == gp, beta, acur))[k0:]
+        dW = pdW / denom + Wr[gp, :jl]
+        dV = pdV / denom + Vr[gp, :jl]
+        y = a.new_zeros((M,))
+        y[k0:] = sym @ v[k0:]
+        p = t * (y - Vr[:, :jl] @ dW - Wr[:, :jl] @ dV)
+        p[:k0] = 0
+        pbuf, s_pgp = p, p[gp]
+        coef = t * 0.5 * (v * p).sum()
+        vprev = v
+        tau[jl] = t
+    Wout[k0:, w - 1] = (pbuf - coef * vprev)[k0:]
+    return P, Wout, tau
+
+
+@pytest.mark.parametrize("M,k0,w,nb,dtype", [
+    (256, 0, 128, 128, np.float64), (256, 64, 126, 128, np.float64),
+    (90, 7, 20, 32, np.float64), (131, 3, 60, 64, np.float64),
+    (256, 0, 128, 128, np.float32),
+], ids=["f64-256-k0", "f64-256-k64", "f64-ragged", "f64-odd", "f32-256"])
+def test_latrd_replay_vs_plain(M, k0, w, nb, dtype):
+    """K5's column schedule replayed in plain torch against
+    latrd_panel_plain: float64 to 1e-12 of the largest entry (the
+    schedule reorders sums: lazy w, panel dots over the denominator);
+    float32 to 2e-4 (symvs of 256 terms in other orders over 128
+    columns)."""
+    a = torch.tensor(_sym(np.random.default_rng(33), M, dtype))
+    out = _latrd_replay(a, k0, w, nb)
+    ref = latrd_panel_plain(a, k0, w, nb)
+    rtol = 1e-12 if dtype == np.float64 else 2e-4
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        assert (o - r).abs().max().item() <= rtol * r.abs().max().item()
+
+
+@pytest.mark.parametrize("k0,w", [(0, 128), (64, 126)])
+def test_latrd_replay_vs_pallas_interpret(k0, w):
+    """The replayed column schedule, M=256 f32, against the Pallas kernel
+    in interpret mode, as test_latrd_plain_vs_pallas_interpret holds the
+    plain version: rows >= k0 to 2e-4 of max|ref|."""
+    import jax
+    import jax.numpy as jnp
+    from elementalx.kernels.latrd import latrd_panel as jlatrd
+
+    a = _sym(np.random.default_rng(30), 256)
+    with jax.enable_x64(False):
+        ref = [np.asarray(x) for x in jlatrd(jnp.asarray(a), k0, w, nb=128,
+                                             ts=128, interpret=True)]
+    out = [x.numpy() for x in _latrd_replay(torch.tensor(a), k0, w, 128)]
+    for o, r in zip(out[:2], ref[:2]):
+        assert np.abs(o[k0:, :w] - r[k0:, :w]).max() < 2e-4 * np.abs(
+            r[k0:, :w]).max()
+    assert np.abs(out[2][:w] - ref[2][:w]).max() < 2e-4 * np.abs(ref[2]).max()
+
+
+def test_latrd_replay_vs_xla_panel_f64():
+    """The replayed column schedule against the JAX package's XLA panel
+    (condense._tridiag_panel), float64, M=90, k0=7, w=20: 1e-12 of
+    max|ref|."""
+    import jax.numpy as jnp
+    from elementalx.lapack.condense import _tridiag_panel
+
+    M, k0, w = 90, 7, 20
+    a = _sym(np.random.default_rng(31), M, np.float64)
+    at, _, W, tau = (np.asarray(x) for x in _tridiag_panel(
+        jnp.asarray(a), jnp.asarray(a[k0:, k0:]), jnp.zeros((M - k0, w)),
+        jnp.zeros((M - k0, w)), jnp.zeros((M,)), k0, w, M - k0))
+    P, Wo, t = (x.numpy() for x in _latrd_replay(torch.tensor(a), k0, w, 32))
     assert np.abs(P[k0:, :w] - at[:, :w]).max() < 1e-12 * np.abs(at).max()
     assert np.abs(Wo[k0:, :w] - W).max() < 1e-12 * np.abs(W).max()
     assert np.abs(t[:w] - tau[k0:k0 + w]).max() < 1e-12
@@ -1086,14 +1270,20 @@ def test_matmul_misaligned_bf16_takes_fma(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8192, 768, 512), (1000, 780, 1004),
-                                   (300, 36, 200), (64, 0, 16)],
-                         ids=["history", "ragged", "K36", "K0"])
+                                   (300, 36, 200), (64, 0, 24),
+                                   (1000, 777, 1001), (2000, 777, 2001),
+                                   (257, 129, 65)],
+                         ids=["history", "ragged", "K36", "K0",
+                              "misaligned", "misaligned-128-tiles",
+                              "misaligned-odd"])
 @pytest.mark.parametrize("ta", [False, True], ids=["A", "A.mT"])
 @pytest.mark.parametrize("tb", [False, True], ids=["B", "B.mT"])
 def test_matmul_fma_async_equals_fma_core(cuda, shape, ta, tb):
     """float32 on the cp.async pipeline runs the FMA core's arithmetic:
     each C entry one fma chain over k in order, so the two cores agree bit
-    for bit (ragged shapes with 16-byte rows, which the pipeline takes)."""
+    for bit: ragged shapes with 16-byte rows (16-byte copies), rows of 777
+    or 129 floats (4-byte copies), on 64 x 128 tiles where 128 x 128 ones
+    give fewer blocks than SMs and on 128 x 128 ones otherwise."""
     from elementalx_torch.kernels.matmul import _launch, route
 
     M, K, N = shape
@@ -1107,6 +1297,61 @@ def test_matmul_fma_async_equals_fma_core(cuda, shape, ta, tb):
     torch.cuda.synchronize()
     assert matmul.launches_fma_async == before + 1
     assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (M, K, N, dtype, A layout), A: "rows", "mT" (A.mT), "slice" (a
+    # column slice of a wider buffer), "odd" (rows of 777, an odd base)
+    (8192, 128, 2, torch.float32, "slice"),
+    (8192, 8192, 4, torch.float32, "rows"),
+    (16384, 2048, 2, torch.float32, "rows"),
+    (64, 100000, 3, torch.float32, "rows"),
+    (3000, 40000, 5, torch.float32, "mT"),
+    (1000, 777, 16, torch.float32, "odd"),
+    (128, 126, 2, torch.float32, "odd"),
+    (5, 7, 1, torch.float32, "rows"),
+    (64, 0, 16, torch.float32, "rows"),
+    (2048, 3000, 16, torch.float64, "rows"),
+    (300, 50, 5, torch.float64, "mT"),
+    (40, 70000, 7, torch.float64, "odd"),
+], ids=["summa-c", "summa-a", "summa-b", "split", "mT-split", "odd-N16",
+        "latrd", "tiny", "K0", "f64-N16", "f64-mT", "f64-odd-split"])
+def test_matmul_skinny_vs_plain(cuda, case):
+    """K1's skinny route against matmul_plain: float32 within 1e-5 of
+    max|C| (FP32 sums in another order), float64 within 1e-12; B's rows
+    8 bytes apart where N = 2, as in the dist step; two runs give the same
+    bits (fixed sums, no atomics)."""
+    from elementalx_torch.kernels.matmul import route
+
+    M, K, N, dt, lay = case
+    g = torch.Generator(device=cuda).manual_seed(23)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dt)
+
+    if lay == "slice":
+        a = rnd(M, 4 * K)[:, K:2 * K]
+    elif lay == "mT":
+        a = rnd(K, M).mT
+    elif lay == "odd":
+        a = rnd(M, K + 1)[:, 1:]
+    else:
+        a = rnd(M, K)
+    b = rnd(3 * K, N)[K:2 * K]
+    assert route(a, b) == "skinny"
+    before = (matmul.launches, matmul.launches_skinny)
+    out = matmul(a, b)
+    again = matmul(a, b)
+    ref = matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert (matmul.launches, matmul.launches_skinny) == (before[0] + 2,
+                                                        before[1] + 2)
+    assert out.shape == (M, N) and out.dtype == dt
+    assert torch.equal(out, again)
+    rtol = 1e-5 if dt == torch.float32 else 1e-12
+    err = (out.double() - ref.double()).abs().max().item()
+    assert err <= rtol * max(ref.double().abs().max().item(), 1.0)
 
 
 @pytest.mark.cuda
@@ -1365,6 +1610,56 @@ def test_latrd_on_symv_tiles_at_path_shapes(cuda, M, k0, w, dt):
     for o, o2, r in zip(out, again, ref):
         assert (o - r).abs().max().item() <= rtol * r.abs().max().item()
         assert torch.equal(o, o2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,k0,w,nb,dt", [
+    (300, 200, 98, 128, torch.float64), (258, 0, 128, 128, torch.float32),
+    (130, 0, 128, 128, torch.float64), (16384, 8000, 32, 32, torch.float32),
+    (777, 5, 64, 64, torch.float32), (4099, 1, 127, 128, torch.float64),
+], ids=["few-rows-f64", "m0-below-grid", "whole-matrix-f64", "wide-M-nb32",
+        "odd-nb64", "f64-odd-offset"])
+def test_latrd_kernel_schedule_edges(cuda, M, k0, w, nb, dt):
+    """K5's column schedule where it is thin: fewer trailing rows than
+    blocks, panels narrower than 128, a tall trailing block, an odd k0
+    that shifts the tiles: P, W and tau within 1e-4 (float32) / 1e-10
+    (float64) of max|plain|, and the same bits on a second run (units
+    handed out by a counter change no bit)."""
+    g = torch.Generator(device=cuda).manual_seed(43)
+    x = torch.randn((M, M), generator=g, device=cuda, dtype=torch.float64)
+    a = ((x + x.mT) / 2).to(dt)
+    del x
+    out = latrd_panel(a, k0, w, nb)
+    again = latrd_panel(a, k0, w, nb)
+    ref = latrd_panel_plain(a, k0, w, nb)
+    torch.cuda.synchronize()
+    rtol = 1e-4 if dt == torch.float32 else 1e-10
+    for o, o2, r in zip(out, again, ref):
+        assert o.shape == r.shape
+        assert (o - r).abs().max().item() <= rtol * r.abs().max().item()
+        assert torch.equal(o, o2)
+
+
+@pytest.mark.cuda
+def test_latrd_kernel_whole_matrix_f32_near_f64(cuda):
+    """K5 on a float32 panel that reduces the whole matrix (M=130, k0=0,
+    w=128), where float32 loses digits to cancellation: P, W and tau each
+    no farther from the float64 panel of the same input than twice the
+    plain version's float32 distance from it."""
+    g = torch.Generator(device=cuda).manual_seed(43)
+    x = torch.randn((130, 130), generator=g, device=cuda, dtype=torch.float64)
+    a = ((x + x.mT) / 2).float()
+    out = latrd_panel(a, 0, 128, 128)
+    plain = latrd_panel_plain(a, 0, 128, 128)
+    ref = latrd_panel_plain(a.double(), 0, 128, 128)
+    torch.cuda.synchronize()
+    for name, o, p, r in zip(("P", "W", "tau"), out, plain, ref):
+        kernel_err = (o.double() - r).abs().max().item()
+        plain_err = (p.double() - r).abs().max().item()
+        print(f"K5 (130, 0, 128) f32 {name}: max|kernel - f64| "
+              f"{kernel_err:.3e}, max|plain - f64| {plain_err:.3e}, "
+              f"max|f64| {r.abs().max().item():.3e}")
+        assert kernel_err <= 2 * plain_err
 
 
 @pytest.mark.cuda
