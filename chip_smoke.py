@@ -17,8 +17,14 @@ Phases (each raises on failure, so the script exits non-zero):
      and misaligned bf16 on the FMA core; each timed against
      ``torch.matmul`` in the operands' type and its bound at the right
      peak (FP64 FMA 33.5 TFLOP/s for float64);
-  3. K3a (Cholesky diagonal block) against its plain version, and the NaN
-     poisoning of a block that is not positive definite;
+  3. K3a (Cholesky diagonal block) against its plain version at w=512,
+     2048 and 200 on every route that takes the width (the cluster route,
+     the blocked route and the first design "steps"): exact zeros outside
+     the triangles, the NaN poisoning of a block that is not positive
+     definite, the same bits twice; the routes and the plain version
+     timed in turns beside the library pair (cholesky_ex, then
+     solve_triangular) and cholesky_ex alone, with the chain floor (two
+     cluster barriers a 32-wide step, kernels/sync_probe.py);
   4. the slice: ``elementalx_torch.entry`` at n=16384, nrhs=256, float32,
      with the scaled residual checked in float64 and the kernels' launch
      counts read around the run; and a small float64 run held against the
@@ -65,13 +71,18 @@ Phases (each raises on failure, so the script exits non-zero):
      against the same step on the CPU;
   9. K2 (masked rank-k update), K3b/K3c (fused panel tail) and K7
      (lower-triangle symv) against their plain versions at the level-3,
-     HPD and symv shapes, K7 on the core ``route`` gives each case (TMA
-     tiles, or the scalar unit at n=16383) with its GB/s, and its two
-     cores in turns at n=16384; K3c once at each of the HPD path's 32
-     panel shapes, the launches its JSON entry reports;
+     HPD and symv shapes, K3b and K7 on the route ``route`` gives each
+     case (K3b: the cluster route, or the blocked one at w=2048; K7: TMA
+     tiles, or the scalar unit at n=16383); K3b's routes and its first
+     design ("grid") at (16384, 512) and (8192, 2048) in turns with the
+     plain version beside the library pair and the factor's chain floor,
+     K3c's route against the first design at kidx 15; K7 with its GB/s
+     and its two cores in turns at n=16384; K3c once at each of the HPD
+     path's 32 panel shapes, the launches its JSON entry reports;
  10. the fused-tail HPD slice: ``entry()`` at n=16384 under
      ``ELX_PALLAS_POTRF=1`` (set for the phase only), gated on the scaled
-     residual and 32 K3b launches; a bfloat16-storage Cholesky at n=16384
+     residual and 32 K3b launches on the cluster route; a
+     bfloat16-storage Cholesky at n=16384
      through the fused tail beside the default path, gated on every
      history product taking K1's tensor cores and none its FMA core, with
      its time; and the public Herk,
@@ -200,6 +211,11 @@ def main() -> None:
     from elementalx_torch.kernels.matmul import matmul, matmul_plain
     from elementalx_torch.kernels.matmul import reset_launches as k1_reset
     from elementalx_torch.kernels.matmul import route as k1_route
+    from elementalx_torch.kernels.potrf import CLUSTER_MAX_W as K3_MAX_W
+    from elementalx_torch.kernels.potrf import ROUTES as K3A_ROUTES
+    from elementalx_torch.kernels.potrf import TAIL_ROUTES as K3B_ROUTES
+    from elementalx_torch.kernels.potrf import _launch as k3a_launch
+    from elementalx_torch.kernels.potrf import _tail_launch as k3b_launch
     from elementalx_torch.kernels.potrf import (
         potrf_block_inv,
         potrf_block_inv_plain,
@@ -208,6 +224,8 @@ def main() -> None:
         potrf_panel_tail_full_plain,
         potrf_panel_tail_plain,
     )
+    from elementalx_torch.kernels.potrf import reset_launches as k3_reset
+    from elementalx_torch.kernels.potrf import route as k3_route
     from elementalx_torch.kernels.ring_summa import CORES as K8_CORES
     from elementalx_torch.kernels.ring_summa import reset_launches as k8_reset
     from elementalx_torch.kernels.ring_summa import route as k8_route
@@ -445,36 +463,112 @@ def main() -> None:
     # ---- 3. K3a against torch.linalg.cholesky_ex + triangular inverse ----
     # Tolerance: max|out - plain| <= 1e-5 * max|plain| in float32; the
     # blocks are g g^T / w + 2 I (condition number below 3), so both
-    # factorizations agree to a few float32 ulps.
-    k3_main = None
+    # factorizations agree to a few float32 ulps. Every route that takes
+    # the width is checked (the cluster route up to CLUSTER_MAX_W, the
+    # blocked route, the first design "steps"): exact zeros outside the
+    # triangles, NaN in both outputs for a block that is not positive
+    # definite, the same bits on a second run (cluster and blocked), one
+    # launch counted on the route; then the routes and the plain version
+    # are timed in turns (A B C D D C B A) beside the library pair
+    # (cholesky_ex, then solve_triangular against the identity) and
+    # cholesky_ex alone. The chain floor: two cluster barriers a 32-wide
+    # step at the cluster's size (kernels/sync_probe.py), over every
+    # diagonal block the route factors.
+    def in_turns(fns, iters):
+        names = list(fns)
+        out = dict.fromkeys(names, 0.0)
+        for k in names + names[::-1]:
+            out[k] += time_ms(fns[k], iters) / 2
+        return out
+
+    k3_bar_us = {}
+
+    def k3_floor(w, dt):
+        bs = K3_MAX_W[dt]
+        floor = 0.0
+        for b0 in range(0, w, bs):
+            nt = -(-min(bs, w - b0) // 32)
+            if nt not in k3_bar_us:
+                k3_bar_us[nt] = sync_step_us("cluster barrier", nt)
+            floor += 2 * nt * k3_bar_us[nt]
+        return floor / 1e3
+
+    def k3a_routes():
+        return {rt: getattr(potrf_block_inv, f"launches_{rt}")
+                for rt in K3A_ROUTES}
+
+    def k3b_routes():
+        return {rt: getattr(potrf_panel_tail, f"launches_{rt}")
+                for rt in K3B_ROUTES}
+
+    def lib_pair(sym):
+        l, _ = torch.linalg.cholesky_ex(sym)
+        eye = torch.eye(sym.shape[0], device=dev, dtype=sym.dtype)
+        return torch.linalg.solve_triangular(l, eye, upper=False)
+
+    k3_main = {}
     for w in (512, 2048, 200):
         g = randn(w, w, dtype=torch.float64)
         sym = (g @ g.mT / w + 2 * torch.eye(w, device=dev,
                                             dtype=torch.float64)).float()
-        l11, inv_lh = potrf_block_inv(sym)
         l_ref, inv_ref = potrf_block_inv_plain(sym)
-        sync()
-        err = max((l11 - l_ref).abs().max().item(),
-                  (inv_lh - inv_ref).abs().max().item())
         scale = max(l_ref.abs().max().item(), inv_ref.abs().max().item())
-        require(err <= 1e-5 * scale,
-                f"K3a w={w}: max_abs_err {err} > 1e-5 * {scale}")
-        require(l11.triu(1).abs().max().item() == 0.0
-                and inv_lh.tril(-1).abs().max().item() == 0.0,
-                f"K3a w={w}: nonzero entries outside the triangles")
-        bad_l, bad_inv = potrf_block_inv(-sym)
-        sync()
-        require(bool(bad_l.isnan().all()) and bool(bad_inv.isnan().all()),
-                f"K3a w={w}: a non-HPD block was not poisoned with NaN")
-        ms, plain_ms = time_pair(lambda: potrf_block_inv(sym),
-                                 lambda: potrf_block_inv_plain(sym), 10)
-        print(f"K3a w={w} f32: max_abs_err {err:.3e} (tol 1e-5 x "
-              f"{scale:.3e}), non-HPD -> NaN  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms")
-        if k3_main is None:
-            # Cholesky w^3/3 and the triangular inverse w^3/3; the block
-            # read once, l11 and invLH written once
-            k3_main = (err, ms, plain_ms, roofline(2 * w ** 3 / 3, 12 * w * w))
+        routes = [rt for rt in K3A_ROUTES
+                  if rt != "cluster" or w <= K3_MAX_W[torch.float32]]
+        require(k3_route(w, torch.float32) == routes[0],
+                f"K3a w={w}: route {k3_route(w, torch.float32)}")
+        errs = {}
+        for rt in routes:
+            k3_reset()
+            l11, inv_lh = k3a_launch(rt, sym)
+            again = k3a_launch(rt, sym)
+            sync()
+            require(getattr(potrf_block_inv, f"launches_{rt}") == 2
+                    and potrf_block_inv.launches == 2,
+                    f"K3a w={w} {rt}: launches not counted on the route")
+            err = max((l11 - l_ref).abs().max().item(),
+                      (inv_lh - inv_ref).abs().max().item())
+            require(err <= 1e-5 * scale,
+                    f"K3a w={w} {rt}: max_abs_err {err} > 1e-5 * {scale}")
+            require(l11.triu(1).abs().max().item() == 0.0
+                    and inv_lh.tril(-1).abs().max().item() == 0.0,
+                    f"K3a w={w} {rt}: nonzero entries outside the triangles")
+            require(rt == "steps" or (torch.equal(again[0], l11)
+                                      and torch.equal(again[1], inv_lh)),
+                    f"K3a w={w} {rt}: two runs give different bits")
+            bad_l, bad_inv = k3a_launch(rt, -sym)
+            sync()
+            require(bool(bad_l.isnan().all()) and bool(bad_inv.isnan().all()),
+                    f"K3a w={w} {rt}: a non-HPD block was not poisoned")
+            errs[rt] = err
+            del l11, inv_lh, again, bad_l, bad_inv
+        fns = {rt: (lambda rt=rt: k3a_launch(rt, sym)) for rt in routes}
+        fns["plain"] = lambda: potrf_block_inv_plain(sym)
+        ms = in_turns(fns, 10)
+        pair_ms = time_ms(lambda: lib_pair(sym), 10)
+        chol_ms = time_ms(lambda: torch.linalg.cholesky_ex(sym), 10)
+        # Cholesky w^3/3 and the triangular inverse w^3/3; the block read
+        # once, l11 and invLH written once
+        bound = roofline(2 * w ** 3 / 3, 12 * w * w)
+        floor = k3_floor(w, torch.float32)
+        print(f"K3a w={w} f32, routes in turns: "
+              + ", ".join(f"{rt} {ms[rt]:.4f} ms (max_abs_err "
+                          f"{errs[rt]:.3e})" for rt in routes)
+              + f"; plain {ms['plain']:.4f} ms; library pair (cholesky_ex + "
+              f"solve_triangular) {pair_ms:.4f} ms, cholesky_ex alone "
+              f"{chol_ms:.4f} ms; tol 1e-5 x {scale:.3e}, zeros outside "
+              f"the triangles, non-HPD -> NaN; bound {bound[0]:.4f} ms "
+              f"({bound[1]}); chain floor {floor:.4f} ms (2 cluster "
+              f"barriers a 32-wide step: "
+              + ", ".join(f"{c} CTAs {t:.3f} us"
+                          for c, t in k3_bar_us.items())
+              + ")")
+        # the kernels lines' rows: each route at the width a path gives it
+        for rt in routes:
+            if w == {"blocked": 2048}.get(rt, 512):
+                k3_main[rt] = (errs[rt], ms[rt], ms["plain"], bound, w,
+                               pair_ms, floor)
+        del sym, l_ref, inv_ref
 
     # From here on every K1 launch on the FMA core is named by its operands
     # (fma_named), and the float64 runs of the slices against the CPU
@@ -514,7 +608,7 @@ def main() -> None:
     step, (a, b) = entry(n=n, nrhs=nrhs, dtype=torch.float32, device=dev)
     sync()
     k1_reset()
-    potrf_block_inv.launches = 0
+    k3_reset()
     k9_reset()
     t0 = time.perf_counter()
     x, nrm = step(a, b)
@@ -522,6 +616,7 @@ def main() -> None:
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = {"K1": matmul.launches, "K1 cores": k1_counts(),
                 "K3a": potrf_block_inv.launches,
+                "K3a routes": k3a_routes(),
                 "K9": k9_counts()}
     t0 = time.perf_counter()
     step(a, b)
@@ -534,8 +629,10 @@ def main() -> None:
     resid = ((a.double() @ x.double() - b.double()).abs().max()
              / (eps * n * b.double().abs().max())).item()
     require(resid < 100, f"scaled residual {resid} >= 100")
-    require(launches["K1"] > 0 and launches["K3a"] > 0,
-            f"the main path did not launch every kernel: {launches}")
+    require(launches["K1"] > 0 and launches["K3a"] == 32
+            and launches["K3a routes"]["cluster"] == 32,
+            f"the main path did not launch every kernel (32 K3a panels on "
+            f"the cluster route): {launches}")
     require(launches["K9"]["transpose"] == 0,
             f"a K9 transpose on the HPD path: {launches}")
     print(f"slice HPDSolve + residual Gemm + Nrm2, n={n} nrhs={nrhs} f32: "
@@ -1096,14 +1193,30 @@ def main() -> None:
         return (g @ g.mT / w + 2 * torch.eye(w, device=dev,
                                             dtype=torch.float64)).float()
 
-    k3b_main = None
+    # Each case runs on the route route() gives it; at (16384, 512) and
+    # (8192, 2048) without low_apply every route that takes the width
+    # (cluster, blocked, and the first design "grid") is also checked
+    # against the plain version and timed with it in turns, beside the
+    # library pair (cholesky_ex, then solve_triangular for L21 =
+    # pan21 L11^-T) and cholesky_ex alone, with the factor's chain floor.
+    def k3b_pair(sym, pan21):
+        l, _ = torch.linalg.cholesky_ex(sym)
+        return torch.linalg.solve_triangular(l.mT, pan21, upper=True,
+                                             left=False)
+
+    k3b_main = {}
     for Mt, w, low in ((16384, 512, False), (16384, 512, True),
                        (8192, 2048, False), (8192, 2048, True),
                        (1000, 200, False)):
         sym = spd_block(w)
         pan = randn(Mt, w)
         pan[:w] = float("nan")  # the diagonal block's rows are never read
+        rt = k3_route(w, torch.float32)
+        k3_reset()
         out = potrf_panel_tail(sym, pan, low_apply=low)
+        require(getattr(potrf_panel_tail, f"launches_{rt}") == 1
+                and potrf_panel_tail.launches == 1,
+                f"K3b ({Mt},{w}): not one launch on the {rt} route")
         ref = potrf_panel_tail_plain(sym, pan, low_apply=low)
         l11, _ = potrf_block_inv(sym)
         sync()
@@ -1128,18 +1241,51 @@ def main() -> None:
         sync()
         require(bool(bad.isnan().all()),
                 f"K3b ({Mt},{w}): a non-HPD block was not poisoned")
-        ms, plain_ms = time_pair(
-            lambda: potrf_panel_tail(sym, pan, low_apply=low),
-            lambda: potrf_panel_tail_plain(sym, pan, low_apply=low), 5)
-        print(f"K3b ({Mt},{w}) low_apply={low}: max_abs_err L21 {err:.3e} "
-              f"(tol {rtol} x {scale:.3e}){sep}, L11 equal to K3a's, "
-              f"non-HPD -> NaN  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-        if k3b_main is None:
-            # the work: chol of the block (w^3/3) and a triangular solve
-            # for L21 ((Mt - w) w^2)
-            k3b_main = (err, ms, plain_ms,
-                        roofline(w ** 3 / 3 + (Mt - w) * w * w,
-                                 4 * (w * w + (Mt - w) * w + Mt * w)))
+        # the work: chol of the block (w^3/3) and a triangular solve for
+        # L21 ((Mt - w) w^2)
+        bound = roofline(w ** 3 / 3 + (Mt - w) * w * w,
+                         4 * (w * w + (Mt - w) * w + Mt * w))
+        if low or Mt < 8192:
+            ms, plain_ms = time_pair(
+                lambda: potrf_panel_tail(sym, pan, low_apply=low),
+                lambda: potrf_panel_tail_plain(sym, pan, low_apply=low), 5)
+            print(f"K3b ({Mt},{w}) low_apply={low} on {rt}: max_abs_err L21 "
+                  f"{err:.3e} (tol {rtol} x {scale:.3e}){sep}, L11 equal to "
+                  f"K3a's, non-HPD -> NaN  kernel {ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms")
+            del pan, out, ref, bad
+            continue
+        routes = [r for r in K3B_ROUTES
+                  if r != "cluster" or w <= K3_MAX_W[torch.float32]]
+        errs = {}
+        for r in routes:
+            o = k3b_launch(r, sym, pan, 0, False)
+            sync()
+            errs[r] = (o[w:] - ref[w:]).abs().max().item()
+            same = r == "grid" or torch.equal(o[:w], k3a_launch(r, sym)[0])
+            require(errs[r] <= rtol * scale and same,
+                    f"K3b ({Mt},{w}) {r}: L21 off by {errs[r]} or L11 not "
+                    f"K3a's on the same route")
+            del o
+        fns = {r: (lambda r=r: k3b_launch(r, sym, pan, 0, False))
+               for r in routes}
+        fns["plain"] = lambda: potrf_panel_tail_plain(sym, pan)
+        ms = in_turns(fns, 5)
+        pair_ms = time_ms(lambda: k3b_pair(sym, pan[w:]), 5)
+        chol_ms = time_ms(lambda: torch.linalg.cholesky_ex(sym), 5)
+        floor = k3_floor(w, torch.float32)
+        print(f"K3b ({Mt},{w}) f32, routes in turns: "
+              + ", ".join(f"{r} {ms[r]:.4f} ms (max_abs_err L21 "
+                          f"{errs[r]:.3e})" for r in routes)
+              + f"; plain {ms['plain']:.4f} ms; library pair (cholesky_ex + "
+              f"solve_triangular) {pair_ms:.4f} ms, cholesky_ex alone "
+              f"{chol_ms:.4f} ms; tol {rtol} x {scale:.3e}, L11 equal to "
+              f"K3a's, non-HPD -> NaN; bound {bound[0]:.4f} ms "
+              f"({bound[1]}); the factor's chain floor {floor:.4f} ms")
+        for r in routes:
+            if w == {"blocked": 2048}.get(r, 512):
+                k3b_main[r] = (errs[r], ms[r], ms["plain"], bound, (Mt, w),
+                               pair_ms, floor)
         del pan, out, ref, bad
 
     # K3c: its rows from tile kidx on equal K3b's on the same rows, bit
@@ -1163,13 +1309,22 @@ def main() -> None:
     k3c_err = (o - r).abs().max().item()
     require(k3c_err <= 1e-5 * r.abs().max().item(),
             f"K3c kidx={kmid}: {k3c_err} from its plain version")
-    ms, plain_ms = time_pair(
-        lambda: potrf_panel_tail_full(sym, pan, kmid),
-        lambda: potrf_panel_tail_full_plain(sym, pan, kmid), 5)
     r0 = kmid * w3
-    k3c_main = (k3c_err, ms, plain_ms,
+    ms = in_turns({
+        "cluster": lambda: potrf_panel_tail_full(sym, pan, kmid),
+        "grid": lambda: k3b_launch("grid", sym, pan, r0, False),
+        "plain": lambda: potrf_panel_tail_full_plain(sym, pan, kmid)}, 5)
+    pair_ms = time_ms(lambda: k3b_pair(sym, pan[r0 + w3:]), 5)
+    print(f"K3c ({M3},{w3}) kidx={kmid} in turns: cluster {ms['cluster']:.4f}"
+          f" ms, the first design (grid) {ms['grid']:.4f} ms, plain "
+          f"{ms['plain']:.4f} ms; library pair (cholesky_ex + "
+          f"solve_triangular) {pair_ms:.4f} ms; the factor's chain floor "
+          f"{k3_floor(w3, torch.float32):.4f} ms")
+    k3c_main = (k3c_err, ms["cluster"], ms["plain"],
                 roofline(w3 ** 3 / 3 + (M3 - r0 - w3) * w3 * w3,
                          4 * (w3 * w3 + (M3 - r0 - w3) * w3 + M3 * w3)))
+    plain_ms = ms["plain"]
+    ms = ms["cluster"]
     sync()
     potrf_panel_tail_full.launches = 0
     for k in range(nt):
@@ -1250,8 +1405,7 @@ def main() -> None:
         step, (a, b) = entry(n=n, nrhs=nrhs, dtype=torch.float32, device=dev)
         sync()
         k1_reset()
-        potrf_block_inv.launches = 0
-        potrf_panel_tail.launches = 0
+        k3_reset()
         k9_reset()
         t0 = time.perf_counter()
         x, nrm = step(a, b)
@@ -1260,6 +1414,7 @@ def main() -> None:
         fused_launches = {"K1": matmul.launches, "K1 cores": k1_counts(),
                           "K3a": potrf_block_inv.launches,
                           "K3b": potrf_panel_tail.launches,
+                          "K3b routes": k3b_routes(),
                           "K9": k9_counts()}
         t0 = time.perf_counter()
         step(a, b)
@@ -1271,6 +1426,7 @@ def main() -> None:
                  / (eps * n * b.double().abs().max())).item()
         require(resid < 100, f"fused HPD slice: scaled residual {resid}")
         require(fused_launches["K3b"] == 32 and fused_launches["K3a"] == 0
+                and fused_launches["K3b routes"]["cluster"] == 32
                 and fused_launches["K1"] > 0
                 and fused_launches["K9"]["transpose"] == 0,
                 f"fused HPD slice launches {fused_launches}")
@@ -1304,13 +1460,13 @@ def main() -> None:
         from elementalx_torch.core.environment import Blocksize
         nb16 = max(Blocksize(), 512)
         hist_products = sum(1 + (k0 > nb16) for k0 in range(nb16, n, nb16))
-        errs16, chol16 = {}, {}
+        errs16, chol16, k3_16 = {}, {}, {}
         for label, fuse in (("fused tail", True), ("default", False)):
             if fuse:
                 os.environ["ELX_PALLAS_POTRF"] = "1"
             else:
                 os.environ.pop("ELX_PALLAS_POTRF", None)
-            potrf_panel_tail.launches = potrf_block_inv.launches = 0
+            k3_reset()
             k1_reset()
             sync()
             t0 = time.perf_counter()
@@ -1319,6 +1475,7 @@ def main() -> None:
             t16 = (time.perf_counter() - t0) * 1e3
             cores = k1_counts()
             chol16[label] = cores
+            k3_16[label] = (k3a_routes(), k3b_routes())
             Lf = L16.data.float()
             errs16[label] = ((Lf @ Lf.mT - ab).abs().max()
                              / ab.abs().max()).item()
@@ -1429,8 +1586,8 @@ def main() -> None:
         del GA, GB
         sync()
         k1_reset()
-        potrf_block_inv.launches = 0
-        potrf_panel_tail.launches = latrd_panel.launches = sb2tr.launches = 0
+        k3_reset()
+        latrd_panel.launches = sb2tr.launches = 0
         k9_reset()
         t0 = time.perf_counter()
         wg, xg, rg = gen_def_eig_step(ga, gb, "AXBX")
@@ -1439,6 +1596,7 @@ def main() -> None:
         gd_launches = {"K1": matmul.launches, "K1 cores": k1_counts(),
                        "K3a": potrf_block_inv.launches,
                        "K3b": potrf_panel_tail.launches,
+                       "K3b routes": k3b_routes(),
                        "K5": latrd_panel.launches, "K6": sb2tr.launches,
                        "K9": k9_counts()}
     finally:
@@ -1454,7 +1612,8 @@ def main() -> None:
             "GenDefEig slice: non-finite or misshapen output")
     require(resid < 100, f"GenDefEig slice: scaled residual {resid}")
     require(borth < 100, f"GenDefEig slice: B-orthogonality {borth}")
-    require(gd_launches["K1"] > 0 and gd_launches["K3b"] > 0
+    require(gd_launches["K1"] > 0 and gd_launches["K3b"] == 4
+            and gd_launches["K3b routes"]["blocked"] == 4
             and gd_launches["K5"] + gd_launches["K6"] > 0,
             f"the GenDefEig path did not launch its kernels: {gd_launches}")
     require(gd_launches["K9"]["transpose"] == 0,
@@ -2238,18 +2397,52 @@ def main() -> None:
             k1_main[core][3])
         for core, src, name in k1_rows if k1_launches[core] == 0
     ]
+    # K3a's and K3b's launches by route over the main-path runs (the HPD
+    # default and fused paths, the bf16-storage Cholesky's two, GenDefEig);
+    # the routes they did not launch (K3a's blocked route, which only
+    # w > 512 takes, and the first designs, which no path takes) keep their
+    # phase 3 and 9 rows on the off-path line.
+    k3a_paths = {rt: launches["K3a routes"][rt]
+                 + sum(a[rt] for a, _ in k3_16.values())
+                 for rt in K3A_ROUTES}
+    k3b_paths = {rt: fused_launches["K3b routes"][rt]
+                 + gd_launches["K3b routes"][rt]
+                 + sum(b[rt] for _, b in k3_16.values())
+                 for rt in K3B_ROUTES}
+    print(f"K3a launches by route on the main paths: {k3a_paths}; K3b "
+          f"{k3b_paths}")
+    require(all(k3a_paths[rt] == 0 for rt in ("blocked", "steps"))
+            and k3b_paths["grid"] == 0,
+            f"a K3 route off the main paths launched: {k3a_paths} "
+            f"{k3b_paths}")
+    off_path += [
+        row("K3a Cholesky diagonal block (potrf_block_inv; blocked route, "
+            "w=2048): off the main paths", csrc + "potrf.cu",
+            "elementalx/kernels/potrf.py:263", 0, k3_main["blocked"][:4]),
+        row("K3a Cholesky diagonal block, the first design (route steps, "
+            "w=512): off the main paths", csrc + "potrf.cu",
+            "elementalx/kernels/potrf.py:263", 0, k3_main["steps"][:4]),
+        row("K3b fused panel tail, the first design (route grid, (16384, "
+            "512)): off the main paths", csrc + "potrf_tail.cu",
+            "elementalx/kernels/potrf.py:289", 0, k3b_main["grid"][:4]),
+    ]
     kernels += [
         row("K2 masked rank-k update (masked_rank_k)", csrc + "trrk.cu",
             "elementalx/kernels/trrk.py:45", blas_launches["K2"], k2_main),
-        row("K3a Cholesky diagonal block (potrf_block_inv)",
-            csrc + "potrf.cu", "elementalx/kernels/potrf.py:263",
-            launches["K3a"], k3_main),
-        row("K3b fused Cholesky panel tail (potrf_panel_tail)",
-            csrc + "potrf_tail.cu", "elementalx/kernels/potrf.py:289",
-            fused_launches["K3b"], k3b_main),
-        row("K3c full-height fused panel tail (potrf_panel_tail_full)",
-            csrc + "potrf_tail.cu", "elementalx/kernels/potrf.py:208",
-            k3c_launches, k3c_main),
+        row("K3a Cholesky diagonal block (potrf_block_inv; cluster route, "
+            "w=512)", csrc + "potrf.cu", "elementalx/kernels/potrf.py:263",
+            k3a_paths["cluster"], k3_main["cluster"][:4]),
+        row("K3b fused Cholesky panel tail (potrf_panel_tail; cluster route,"
+            " (16384, 512))", csrc + "potrf_tail.cu",
+            "elementalx/kernels/potrf.py:289", k3b_paths["cluster"],
+            k3b_main["cluster"][:4]),
+        row("K3b fused Cholesky panel tail (potrf_panel_tail; blocked route,"
+            " (8192, 2048))", csrc + "potrf_tail.cu",
+            "elementalx/kernels/potrf.py:289", k3b_paths["blocked"],
+            k3b_main["blocked"][:4]),
+        row("K3c full-height fused panel tail (potrf_panel_tail_full; "
+            "cluster route)", csrc + "potrf_tail.cu",
+            "elementalx/kernels/potrf.py:208", k3c_launches, k3c_main),
         row("K4 pivoted LU panel (getrf_panel; cluster route)",
             csrc + "getrf.cu", "elementalx/kernels/getrf.py:210",
             lu_launches["K4 routes"]["cluster"], k4_main, k4_main[3]),

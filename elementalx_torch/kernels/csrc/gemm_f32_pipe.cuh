@@ -258,7 +258,7 @@ cudaError_t prepare(Kernel kernel, int bytes = kSmemBytes) {
 // on the FMA core, on kBM x BN tiles. kAK: A is K-major (sak = 1), else
 // M-major; kBK: B is K-major (sbk = 1), else N-major; narrow: 4-byte
 // copies. kTag only names the instance, so that a profile tells the
-// callers apart (0: K1, 4: K4's rank-32 update).
+// callers apart (0: K1, 3: K3's blocked products, 4: K4's rank-32 update).
 template <bool kAK, bool kBK, int kBM, int kTag>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm(const GemmArgs g, const int narrow) {
@@ -310,6 +310,28 @@ cudaError_t launch(const GemmArgs& g, cudaStream_t s, bool narrow = false) {
                           ((g.N + BN - 1) / BN);
   if (tiles < sms) return launch_tile<kAK, kBK, 64, kTag>(g, narrow, s);
   return launch_tile<kAK, kBK, BM, kTag>(g, narrow, s);
+}
+
+// Whether launch_any takes g: float32 operands with a unit stride each.
+inline bool unit_strides(const GemmArgs& g) {
+  return (g.sak == 1 || g.sam == 1) && (g.sbk == 1 || g.sbn == 1);
+}
+
+// The launch on g's own layouts (A K-major where sak = 1, B K-major where
+// sbk = 1), in 16-byte copies where both bases and the other strides
+// allow them, else in 4-byte ones. Needs unit_strides(g).
+template <int kTag = 0>
+cudaError_t launch_any(const GemmArgs& g, cudaStream_t s) {
+  const bool ak = g.sak == 1, bk = g.sbk == 1;
+  const long long lda = ak ? g.sam : g.sak, ldb = bk ? g.sbn : g.sbk;
+  const bool narrow = reinterpret_cast<uintptr_t>(g.A) % 16 != 0 ||
+                      reinterpret_cast<uintptr_t>(g.B) % 16 != 0 ||
+                      lda % 4 != 0 || ldb % 4 != 0;
+  if (ak)
+    return bk ? launch<true, true, kTag>(g, s, narrow)
+              : launch<true, false, kTag>(g, s, narrow);
+  return bk ? launch<false, true, kTag>(g, s, narrow)
+            : launch<false, false, kTag>(g, s, narrow);
 }
 
 }  // namespace

@@ -260,7 +260,7 @@ __device__ __forceinline__ void tile_store(
   }
 }
 
-template <typename TIn, typename TOut, typename Acc>
+template <typename TIn, typename TOut, typename Acc, bool kRoundBF16 = false>
 __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs g) {
   constexpr int BM = Tile<Acc>::BM, BN = Tile<Acc>::BN;
   __shared__ TileSmem<Acc> sm;
@@ -273,16 +273,18 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_kernel(GemmArgs g) {
   TOut* C = static_cast<TOut*>(g.C) + z * g.scb;
 
   Acc acc[Tile<Acc>::TM][Tile<Acc>::TN];
-  tile_product<TIn, Acc>(g, A, B, m0, n0, sm, acc);
+  tile_product<TIn, Acc, kRoundBF16>(g, A, B, m0, n0, sm, acc);
   tile_store<TOut, Acc>(g, C, m0, n0, acc);
 }
 
-template <typename TIn, typename TOut, typename Acc>
+// kRoundBF16 as in tile_product.
+template <typename TIn, typename TOut, typename Acc, bool kRoundBF16 = false>
 cudaError_t launch_gemm(const GemmArgs& g, int batch, cudaStream_t stream) {
   if (g.M <= 0 || g.N <= 0 || batch <= 0) return cudaSuccess;
   const dim3 grid((g.M + Tile<Acc>::BM - 1) / Tile<Acc>::BM,
                   (g.N + Tile<Acc>::BN - 1) / Tile<Acc>::BN, batch);
-  gemm_kernel<TIn, TOut, Acc><<<grid, kGemmThreads, 0, stream>>>(g);
+  gemm_kernel<TIn, TOut, Acc, kRoundBF16>
+      <<<grid, kGemmThreads, 0, stream>>>(g);
   return cudaGetLastError();
 }
 

@@ -20,39 +20,50 @@
 // which share _factor_block and _apply_dot. The TPU kernel factors the
 // whole block in VMEM in a transposed layout on grid step 0 and streams
 // one (w, w) tile of the panel per later step through one MXU product.
-// A Hopper SM has 227 KB of shared memory (the w = 512 block is 1 MB), and
-// its blocks run in parallel, not in order. So the block and its inverse
-// live in global memory (L2) as in K3a (potrf.cu), and the launch is
-// cooperative: every block is resident, and one grid-wide barrier
-// (grid.sync(), about 3.6 us) separates each phase from the next.
+// Hopper runs blocks in parallel, not in order, so the apply cannot simply
+// follow the factor in grid order; what can follow it is each column
+// block of L21, which needs only the matching row-block of inv(L11).
 //
-// Phases, all blocks taking part unless said otherwise:
-//   init   work <- lower(S) padded to W = 32 * 2^p with an identity on the
-//          padding diagonal; xinv <- 0; rows above r0 of out <- 0;
-//   per 32-wide step k (three barriers):
-//     potf2  block 0 factors the 32 x 32 diagonal block in shared memory
-//            and inverts it;
-//     trsm   A21 <- A21 inv(L_kk)^T, one warp per row;
-//     syrk   A22 -= L21 L21^T on the lower tiles (gemm_tile.cuh);
-//   invert the doubling inverse of K3a, two batched products a level;
-//   final  out rows [r0, r0 + w) <- L11; invlh <- inv(L11)^T;
-//   apply  out rows below <- pan rows below * invlh (gemm_tile.cuh).
-// Every step does K3a's arithmetic in K3a's order, and the apply is K1's
-// tile product, so in float the output equals [K3a's l11; K1(pan, K3a's
-// invLH)] bit for bit when the compiler contracts the same expressions.
+// Three routes, picked by kernels/potrf.py:route from w and the dtype:
 //
-// What bounds it: at (16384, 512) the apply is 2 * 15872 * 512^2 = 8.3e9
-// FLOPs (0.12 ms at 67 TFLOP/s); the factor is a chain of 16 dependent
-// steps of three barriers each, and the doubling adds 8 more, about 0.2 ms
-// of barriers alone. What it gives up: overlapping the factor's chain with
-// the apply (the apply needs the whole inverse), tensor cores, and the
-// idle blocks of the small factor phases.
+// Route "cluster" (w <= 512 float32, w <= 384 float64; this design): one
+// launch of clusters of nt = ceil(w / 32) CTAs (potrf.cu's chol_kernel,
+// one instantiation shared with K3a, so L11 is K3a's bit for bit). The
+// first cluster to start (an atomic ticket) runs K3a's factor on chip and
+// stores row-block j of X = inv(L11) (as invlh = X^T) after step j,
+// publishing j + 1 steps with a release store; it never waits for another
+// cluster. Every CTA of the other clusters, and the factor's CTAs once
+// the factor is done, takes strips of 64 rows (32 in float64) of pan21
+// from an atomic counter, holds a strip transposed in shared memory
+// (cp.async), and forms column block j of L21 = sum_{m <= j} pan21[:, m]
+// X[j, m]^T as soon as step j is published (an acquire spin that traps
+// after about 10 s), a thread a 4 x 2 block (2 x 2 in float64), one FMA
+// chain over ascending k a value. The grid holds no more clusters than
+// the card runs at once. So the product, 8.3 GFLOP at (16384, 512) as a
+// dense one and half of it on X's triangle, follows the factor's chain
+// instead of waiting for it: the route is bounded by the larger of the
+// chain (K3a's) and the product on the card's FP32 FMAs (about 0.06 ms
+// at 67 TFLOP/s; the 64 x 32 blocks run at about half of it, bound by
+// shared-memory reads, and the strips a CTA takes during the chain wait
+// for its steps).
+//
+// Route "blocked" (wider blocks: GenDefEig's (8192, 2048)): K3a's blocked
+// route for (L11, invlh) (potrf.cu), then L21 = pan21 invlh as one product
+// on K1's cp.async pipeline (float32 operands with a unit stride each) or
+// its FMA core (float64, low_apply, other strides).
+//
+// Route "grid" (the first design, kept to be timed against): one
+// cooperative launch, K3a's first design's steps between grid barriers
+// (about 56 grid.sync()s at w = 512, each about 1.1 us over 132 CTAs),
+// then the apply on K1's FMA-core tiles once the whole inverse is done.
 #include <cooperative_groups.h>
 
 #include <cstdint>
 #include <type_traits>
 
+#include "gemm_f32_pipe.cuh"
 #include "gemm_tile.cuh"
+#include "potrf_cluster.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -323,10 +334,9 @@ cudaError_t grid_both(int* out) {
 }
 
 template <typename T>
-cudaError_t launch(TailArgs<T> g, int low_apply, int grid, cudaStream_t st) {
-  int want = 0;
-  ELX_RETURN_IF_ERROR(grid_both<T>(&want));
-  if (grid != want) return cudaErrorInvalidValue;
+cudaError_t launch_grid(TailArgs<T> g, int low_apply, cudaStream_t st) {
+  int grid = 0;
+  ELX_RETURN_IF_ERROR(grid_both<T>(&grid));
   void* args[] = {&g};
   const void* fn = reinterpret_cast<const void*>(tail_kernel<T, false>);
   if constexpr (std::is_same<T, float>::value) {
@@ -337,40 +347,80 @@ cudaError_t launch(TailArgs<T> g, int low_apply, int grid, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Blocks of the cooperative launch.
-extern "C" int elx_potrf_tail_grid(int dtype, int* grid) {
-  if (dtype == 0) return grid_both<float>(grid);
-  if (dtype == 1) return grid_both<double>(grid);
-  return cudaErrorInvalidValue;
+template <typename T>
+cudaError_t panel_tail(int route, int rows, int w, int r0, int low_apply,
+                       const T* sym, long long lds, const T* pan,
+                       long long sp0, long long sp1, T* out, T* ws,
+                       int* flags, cudaStream_t st) {
+  if (route == 0) {
+    int W = kNB;
+    while (W < w) W *= 2;
+    const long long WW = static_cast<long long>(W) * W;
+    const TailArgs<T> g{rows, w,  W,        r0,           sym,
+                        lds,  pan, sp0,     sp1,          out,
+                        ws,   ws + WW, ws + 2 * WW, ws + 2 * WW + WW / 4,
+                        flags};
+    return launch_grid<T>(g, low_apply, st);
+  }
+  if (route == 1) {
+    T* invlh = ws + elx::chol::kExchange;  // (w, w)
+    const elx::chol::Call<T> c{w,   rows, r0,  low_apply, 0,     sym,
+                               lds, pan,  sp0, sp1,       out,   w,
+                               invlh, w,  flags, ws};
+    return elx::chol::cluster_call(c, st);
+  }
+  if (route != 2) return cudaErrorInvalidValue;
+  // the blocked route's own scratch, then inv(L11)^T
+  T* invlh = ws + elx::chol::kExchange +
+             2LL * w * elx::chol::kClusterMaxW<T>;
+  ELX_RETURN_IF_ERROR(elx::chol::blocked_call(
+      w, sym, lds, out + static_cast<long long>(r0) * w, w, invlh, w, ws,
+      flags, st));
+  if (r0 > 0)
+    ELX_RETURN_IF_ERROR(cudaMemsetAsync(
+        out, 0, static_cast<size_t>(r0) * w * sizeof(T), st));
+  const int below = rows - r0 - w;
+  if (below <= 0) return cudaSuccess;
+  const long long first = static_cast<long long>(r0) + w;
+  const elx::GemmArgs apply{below, w, w, pan + first * sp0, sp0, sp1, 0,
+                            invlh, w, 1, 0, out + first * w, w, 1, 0,
+                            1.0, 0.0, 0};
+  if constexpr (std::is_same<T, float>::value) {
+    if (low_apply) return elx::launch_gemm<T, T, T, true>(apply, 1, st);
+    if (elx::pipe::unit_strides(apply))
+      return elx::pipe::launch_any<3>(apply, st);
+  }
+  return elx::launch_gemm<T, T, T>(apply, 1, st);
 }
 
-// dtype: 0 float, 1 double (low_apply only with float). sym: (w, w), row
-// stride lds, unit column stride; pan: (rows, w) with strides sp0, sp1;
-// out: (rows, w) contiguous; work, xinv: W * W; tmp: W * W / 4; invlh:
-// w * w; flag: one int. Needs W = 32 * 2^p >= w and r0 + w <= rows.
-extern "C" int elx_potrf_panel_tail(int dtype, int rows, int w, int W, int r0,
-                                    int low_apply, const void* sym,
+}  // namespace
+
+// route: 0 "grid", 1 "cluster", 2 "blocked"; dtype: 0 float, 1 double
+// (low_apply only with float). sym: (w, w), row stride lds, unit column
+// stride; pan: (rows, w) with strides sp0, sp1; out: (rows, w) contiguous.
+// ws and flags as kernels/potrf.py:workspace sizes them for the route
+// (zeroed flags before the first call of the cluster and blocked routes;
+// they are left zero). Needs r0 + w <= rows.
+extern "C" int elx_potrf_panel_tail(int route, int dtype, int rows, int w,
+                                    int r0, int low_apply, const void* sym,
                                     long long lds, const void* pan,
                                     long long sp0, long long sp1, void* out,
-                                    void* work, void* xinv, void* tmp,
-                                    void* invlh, void* flag, int grid,
-                                    void* stream) {
+                                    void* ws, void* flags, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (w <= 0 || W < w || W % kNB != 0 || r0 < 0 || r0 + w > rows ||
-      grid <= 0 || (low_apply && dtype != 0))
+  int* f = static_cast<int*>(flags);
+  if (w <= 0 || r0 < 0 || r0 + w > rows || (low_apply && dtype != 0))
     return cudaErrorInvalidValue;
-#define ELX_TAIL_ARGS(T)                                                    \
-  TailArgs<T> {                                                             \
-    rows, w, W, r0, static_cast<const T*>(sym), lds,                        \
-        static_cast<const T*>(pan), sp0, sp1, static_cast<T*>(out),         \
-        static_cast<T*>(work), static_cast<T*>(xinv), static_cast<T*>(tmp), \
-        static_cast<T*>(invlh), static_cast<int*>(flag)                     \
-  }
   if (dtype == 0)
-    return launch<float>(ELX_TAIL_ARGS(float), low_apply, grid, st);
-  if (dtype == 1) return launch<double>(ELX_TAIL_ARGS(double), 0, grid, st);
-#undef ELX_TAIL_ARGS
+    return panel_tail<float>(route, rows, w, r0, low_apply,
+                             static_cast<const float*>(sym), lds,
+                             static_cast<const float*>(pan), sp0, sp1,
+                             static_cast<float*>(out),
+                             static_cast<float*>(ws), f, st);
+  if (dtype == 1)
+    return panel_tail<double>(route, rows, w, r0, 0,
+                              static_cast<const double*>(sym), lds,
+                              static_cast<const double*>(pan), sp0, sp1,
+                              static_cast<double*>(out),
+                              static_cast<double*>(ws), f, st);
   return cudaErrorInvalidValue;
 }

@@ -173,24 +173,33 @@ def _tridiag_eig(d: torch.Tensor, e: torch.Tensor, b0: torch.Tensor,
                  invit_steps)                           # rows: eigvecs
 
     # clusters are contiguous in the ascending order, so the masked Gram
-    # is block diagonal and one masked CholeskyQR orthonormalises them all
+    # is block diagonal and one masked CholeskyQR orthonormalises them all.
+    # It runs in float64 for a float32 input (the JAX package's runs in
+    # float32): a dense cluster's inverse-iteration vectors are so nearly
+    # dependent that the float32 Gram loses their orthogonality or fails
+    # to factor, and a failed factorization skips the pass (GenDefEig's
+    # tridiagonal at n = 8192, seed 6, from the JAX start vectors:
+    # max|Z^T Z - I| = 884 eps n with a float32 QR, the JAX package's
+    # 0.02 by the luck of its rounding, 0.0075 in float64).
     ctol = max(16 * n * eps, 4.0 / n) * tn1
     newc = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
                       torch.diff(w) > ctol])
     cid = torch.cumsum(newc.to(torch.int32), 0)
     Mcl = cid[:, None] == cid[None, :]
-    eye = torch.eye(n, dtype=dt, device=dev)
+    qdt = torch.float64 if dt == torch.float32 else dt
+    eye = torch.eye(n, dtype=qdt, device=dev)
 
     def cluster_qr(Z, reg):
-        G = Z.mT @ Z
-        Gm = torch.where(Mcl, G, torch.zeros((), dtype=dt, device=dev)) \
+        Zq = Z.to(qdt)
+        G = Zq.mT @ Zq
+        Gm = torch.where(Mcl, G, torch.zeros((), dtype=qdt, device=dev)) \
             + reg * eye
         Lc, info = torch.linalg.cholesky_ex(Gm)
         # a failed factorization skips the orthonormalization rather than
         # poisoning Z; decided on the device
         ok = (info == 0) & torch.all(torch.isfinite(Lc))
         Lc = torch.where(ok, Lc, eye)
-        return Z @ tri_inv_lower(Lc).mT
+        return (Zq @ tri_inv_lower(Lc).mT).to(dt)
 
     Z = cluster_qr(Z.mT, 16 * n * eps).mT
     # second round from Rayleigh-refined shifts

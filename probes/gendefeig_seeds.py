@@ -4,7 +4,7 @@ copies of the port, on one card.
 Usage, from the root of the repository, on a machine with an NVIDIA GPU:
 
     python3 probes/gendefeig_seeds.py ROOT [ROOT ...] [--stages] \
-        [--seeds 0 1 2]
+        [--dump-de] [--seeds 0 1 2]
 
 Each ROOT holds an ``elementalx_torch`` package (for example ``.`` and an
 unpacked ``git archive`` of the parent commit in a directory that
@@ -28,6 +28,14 @@ HermitianTridiag (latrd, K5) and through SBR b=256 (K6): the
 tridiagonal's eigenvectors from ``tridiag_eig`` and, for latrd, Q after
 the backtransform.
 
+With ``--dump-de``, each seed also prints the (d, e) that latrd (K5)
+makes of C, the input of ``tridiag_eig`` behind the orthogonality that
+``--stages`` reads, as lines ``de <name> <i>/<count> <text>``: the
+little-endian float32 bytes of each array, zlib-compressed and base64
+encoded, cut into pieces of 8000 characters (join the pieces of a name
+in order, decode, decompress), and then the orthogonality of
+``tridiag_eig``'s vectors of that (d, e).
+
 After the card's name and power limit, one line per (ROOT, seed).
 """
 
@@ -35,8 +43,10 @@ import subprocess
 import sys
 
 CHILD = r'''
+import base64
 import os
 import sys
+import zlib
 sys.path.insert(0, sys.argv[1])
 import torch
 import elementalx_torch as Et
@@ -48,6 +58,7 @@ ng = 8192
 eps = torch.finfo(torch.float32).eps
 os.environ["ELX_PALLAS_POTRF"] = "1"
 stages = "--stages" in sys.argv
+dump = "--dump-de" in sys.argv
 
 
 def orth(q):
@@ -57,7 +68,7 @@ def orth(q):
             / (eps * ng)).item()
 
 
-for seed in (int(a) for a in sys.argv[2:] if a != "--stages"):
+for seed in (int(a) for a in sys.argv[2:] if not a.startswith("--")):
     ga, gb = make_gendef_problem(ng, device=dev, seed=seed)
     GA = Et.DistMatrix.from_global(ga, grid=Et.Grid(dev))
     GB = Et.DistMatrix.from_global(gb, grid=Et.Grid(dev))
@@ -85,6 +96,19 @@ for seed in (int(a) for a in sys.argv[2:] if a != "--stages"):
           f"HermitianEig's residual on C {r_std:.4f} x growth through L "
           f"{grow:.4f} x units {units:.4f} = {r_std * grow * units:.4f}",
           flush=True)
+    if dump:
+        fact = condense.HermitianTridiag(
+            Et.LOWER, Et.DistMatrix.from_global(Cd.float(), grid=Et.Grid(dev)))
+        for name, arr in (("d", fact.d), ("e", fact.e)):
+            raw = arr.float().cpu().numpy().astype("<f4").tobytes()
+            text = base64.b64encode(zlib.compress(raw, 9)).decode()
+            pieces = [text[i:i + 8000] for i in range(0, len(text), 8000)]
+            for i, piece in enumerate(pieces):
+                print(f"de {name} {i}/{len(pieces)} {piece}", flush=True)
+        _, zt = tridiag_eig.tridiag_eig(fact.d, fact.e)
+        print(f"{sys.argv[1]} seed {seed}: C through latrd: tridiag_eig's "
+              f"vectors {orth(zt):.4f}", flush=True)
+        del fact, zt
     if stages:
         c32 = Cd.float()
         fact = condense.HermitianTridiag(
@@ -107,8 +131,8 @@ for seed in (int(a) for a in sys.argv[2:] if a != "--stages"):
 def main():
     args = sys.argv[1:]
     seeds = ["0", "1", "2"]
-    flags = [a for a in args if a == "--stages"]
-    args = [a for a in args if a != "--stages"]
+    flags = [a for a in args if a in ("--stages", "--dump-de")]
+    args = [a for a in args if a not in flags]
     if "--seeds" in args:
         i = args.index("--seeds")
         args, seeds = args[:i], args[i + 1:]

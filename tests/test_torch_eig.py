@@ -396,6 +396,32 @@ def test_glued_wilkinson_clusters_tridiag_eig():
     assert np.abs(Z.T @ Z - np.eye(n)).max() <= 32 * n * EPS64
 
 
+def test_tridiag_eig_dense_cluster_float32_keeps_orthogonality():
+    """A float32 tridiagonal whose 2048 eigenvalues fill one dense cluster
+    (a uniform spectrum of width 0.01 at 0.2; ctol puts them all in one
+    CholeskyQR block), from the JAX package's start vectors (key 7). The
+    cluster's inverse-iteration vectors are nearly dependent, and a
+    float32 CholeskyQR of them lost their orthogonality: the port read
+    118.45 x eps n before its cluster QR ran in float64. Both packages
+    stay below the gate of 100 x eps n here."""
+    n = 2048
+    rng = np.random.default_rng(3)
+    lam = np.sort(rng.uniform(0.2, 0.21, n))
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    h = sla.hessenberg((q * lam) @ q.T)
+    d = np.diag(h).astype(np.float32)
+    e = np.diag(h, -1).astype(np.float32)
+    eps = np.finfo(np.float32).eps
+    b0 = np.asarray(jax.random.normal(jax.random.key(7), (n, n),
+                                      jnp.float32))
+    _, Z = tt._tridiag_eig(torch.tensor(d), torch.tensor(e),
+                           torch.tensor(b0))
+    _, jZ = jt.tridiag_eig(jnp.asarray(d), jnp.asarray(e))
+    for z in (Z.numpy(), np.asarray(jZ)):
+        z = z.astype(np.float64)
+        assert np.abs(z.T @ z - np.eye(n)).max() / (eps * n) < 100
+
+
 def test_tight_cluster_1e14_spacing():
     """test_hard_cases.py's single giant cluster (n = 512, spacing
     ~1e-14 around 1.0): vectors orthogonal, residual at machine scale."""

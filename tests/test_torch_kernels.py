@@ -341,6 +341,84 @@ def test_padded_order():
         [32, 32, 64, 256, 512, 2048, 2048]
 
 
+@pytest.mark.parametrize("w,dt,rt", [
+    (1, torch.float32, "cluster"), (33, torch.float32, "cluster"),
+    (200, torch.float32, "cluster"), (512, torch.float32, "cluster"),
+    (513, torch.float32, "blocked"), (2048, torch.float32, "blocked"),
+    (1, torch.float64, "cluster"), (384, torch.float64, "cluster"),
+    (385, torch.float64, "blocked"), (512, torch.float64, "blocked"),
+])
+def test_potrf_route(w, dt, rt):
+    """K3a's and K3b's route from w and the dtype alone: the cluster route
+    wherever one CTA a 32-row block holds its row of L, its column of
+    inv(L), the step's panel copy and X_kk^T in 227 KB (2 nt + 2 tiles of
+    32 rows, 36 floats or 34 doubles apart), at most 16 CTAs; and the
+    apply role's strip and column block fit too."""
+    k3 = importlib.import_module("elementalx_torch.kernels.potrf")
+
+    assert k3.route(w, dt) == rt
+    nt = -(-w // 32)
+    ld, lda = (36, 68) if dt == torch.float32 else (34, 34)
+    factor = (2 * nt + 2) * 32 * ld * dt.itemsize
+    apply = 32 * nt * (lda + 32) * dt.itemsize
+    fits = nt <= 16 and max(factor, apply) + 1024 <= 232448
+    assert fits == (rt == "cluster")
+
+
+@pytest.mark.parametrize("tail", [False, True], ids=["k3a", "k3b"])
+def test_potrf_workspace(tail):
+    """The scratch each route needs, as the C entries split it."""
+    k3 = importlib.import_module("elementalx_torch.kernels.potrf")
+    f32, f64 = torch.float32, torch.float64
+    own = 200 * 200 if tail else 0
+    x = 17 * 32 * 32  # the factor CTAs' exchange tiles
+    assert k3.workspace(tail, "steps" if not tail else "grid", 200, f32) \
+        == (2 * 256 * 256 + 256 * 256 // 4 + own, 1)
+    assert k3.workspace(tail, "cluster", 200, f32) == (x + own, 5)
+    assert k3.workspace(tail, "blocked", 200, f64) \
+        == (x + own + 2 * 200 * 384, 5)
+    w = 2048
+    assert k3.workspace(tail, "blocked", w, f32) \
+        == (x + (w * w if tail else 0) + 2 * w * 512, 5)
+
+
+def test_potrf_scratch_cached_per_call_shape():
+    """The scratch is allocated once per (kernel, route, device, stream,
+    dtype, w), with zeroed flags, and handed back on the next call."""
+    k3 = importlib.import_module("elementalx_torch.kernels.potrf")
+    t = torch.zeros((3,), dtype=torch.float64)
+    k3._SCRATCH.clear()
+    ws, flags = k3._scratch(True, "blocked", t, 600, 0)
+    assert ws.numel() == 17 * 32 * 32 + 600 * 600 + 2 * 600 * 384
+    assert ws.dtype == t.dtype
+    assert flags.dtype == torch.int32 and not bool(flags.any())
+    again = k3._scratch(True, "blocked", t, 600, 0)
+    assert again[0] is ws and again[1] is flags
+    for other in (k3._scratch(False, "blocked", t, 600, 0),
+                  k3._scratch(True, "cluster", t, 600, 0),
+                  k3._scratch(True, "blocked", t, 601, 0),
+                  k3._scratch(True, "blocked", t, 600, 7),
+                  k3._scratch(True, "blocked", t.float(), 600, 0)):
+        assert other[0] is not ws and other[1] is not flags
+    assert len(k3._SCRATCH) == 6
+    k3._SCRATCH.clear()
+
+
+def test_potrf_reset_launches_and_cpu_counts_nothing():
+    k3 = importlib.import_module("elementalx_torch.kernels.potrf")
+
+    k3.reset_launches()
+    s = torch.eye(4, dtype=torch.float64) * 2
+    potrf_block_inv(s)
+    potrf_panel_tail(s, torch.ones((6, 4), dtype=torch.float64))
+    potrf_panel_tail_full(s, torch.ones((8, 4), dtype=torch.float64), 1)
+    for fn, routes in ((potrf_block_inv, k3.ROUTES),
+                       (potrf_panel_tail, k3.TAIL_ROUTES),
+                       (potrf_panel_tail_full, k3.TAIL_ROUTES)):
+        assert fn.launches == 0
+        assert all(getattr(fn, f"launches_{r}") == 0 for r in routes)
+
+
 # ---------------------------------------------------------------------------
 # K4 on the CPU: the plain version against the JAX kernel and jax's LU
 # ---------------------------------------------------------------------------
@@ -1361,22 +1439,36 @@ def test_matmul_kernel_refuses_complex(cuda):
         matmul(a, a)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("w,dt", [(1, torch.float32), (33, torch.float64),
-                                  (200, torch.float32), (512, torch.float32),
-                                  (300, torch.float64)])
-def test_potrf_kernel_vs_plain(cuda, w, dt):
-    """Tolerance: 1e-5 (float32) / 1e-12 (float64) of the largest entry;
-    the blocks have condition number below 3."""
-    g = torch.Generator(device=cuda).manual_seed(1)
+_K3_WIDTHS = [1, 33, 200, 512, 513, 2048]
+
+
+def _k3_block(cuda, w, dt, seed=1):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn((w, w), generator=g, device=cuda, dtype=torch.float64)
-    s = (x @ x.mT / w + 2 * torch.eye(w, device=cuda,
-                                      dtype=torch.float64)).to(dt)
-    before = potrf_block_inv.launches
+    return (x @ x.mT / w + 2 * torch.eye(w, device=cuda,
+                                         dtype=torch.float64)).to(dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("w", _K3_WIDTHS)
+def test_potrf_kernel_vs_plain(cuda, w, dt):
+    """K3a on route()'s choice. Tolerance: 1e-5 (float32) / 1e-12
+    (float64) of the largest entry; the blocks have condition number
+    below 3."""
+    k3 = importlib.import_module("elementalx_torch.kernels.potrf")
+
+    s = _k3_block(cuda, w, dt)
+    rt = k3.route(w, dt)
+    before = (potrf_block_inv.launches,
+              getattr(potrf_block_inv, f"launches_{rt}"))
     l11, inv_lh = potrf_block_inv(s)
     l_ref, inv_ref = potrf_block_inv_plain(s)
     torch.cuda.synchronize()
-    assert potrf_block_inv.launches == before + 1
+    assert (potrf_block_inv.launches,
+            getattr(potrf_block_inv, f"launches_{rt}")) == \
+        (before[0] + 1, before[1] + 1)
     rtol = 1e-5 if dt == torch.float32 else 1e-12
     for out, ref in ((l11, l_ref), (inv_lh, inv_ref)):
         assert (out - ref).abs().max().item() <= rtol * ref.abs().max().item()
@@ -1384,6 +1476,46 @@ def test_potrf_kernel_vs_plain(cuda, w, dt):
     assert inv_lh.tril(-1).abs().max().item() == 0.0
     bad_l, bad_inv = potrf_block_inv(-s)
     assert bool(bad_l.isnan().all()) and bool(bad_inv.isnan().all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("w", _K3_WIDTHS)
+@pytest.mark.parametrize("rt", ["cluster", "blocked", "steps"])
+def test_potrf_routes_vs_plain(cuda, rt, w, dt):
+    """Each K3a route against the plain version (tolerances as above):
+    exact zeros outside the triangles, NaN in both outputs for a block
+    that is not positive definite (also one whose trouble is in its last
+    32-column step, or in its last block on the blocked route), and the
+    same bits on a second run."""
+    k3 = importlib.import_module("elementalx_torch.kernels.potrf")
+
+    s = _k3_block(cuda, w, dt, seed=w)
+    if rt == "cluster" and w > k3.CLUSTER_MAX_W[dt]:
+        with pytest.raises(ValueError):
+            k3._launch(rt, s)
+        return
+    l11, inv_lh = k3._launch(rt, s)
+    l_ref, inv_ref = potrf_block_inv_plain(s)
+    again = k3._launch(rt, s)
+    torch.cuda.synchronize()
+    rtol = 1e-5 if dt == torch.float32 else 1e-12
+    for out, ref in ((l11, l_ref), (inv_lh, inv_ref)):
+        assert (out - ref).abs().max().item() <= rtol * ref.abs().max().item()
+    assert l11.triu(1).abs().max().item() == 0.0
+    assert inv_lh.tril(-1).abs().max().item() == 0.0
+    assert torch.equal(again[0], l11) and torch.equal(again[1], inv_lh)
+    late = s.clone()
+    late[-1, -1] = -1.0  # positive definite but for the last pivot
+    for bad in (-s, late):
+        bad_l, bad_inv = k3._launch(rt, bad)
+        torch.cuda.synchronize()
+        assert bool(bad_l.isnan().all()) and bool(bad_inv.isnan().all())
+    # the flags are left zero: a good block after a bad one is not poisoned
+    l2, _ = k3._launch(rt, s)
+    torch.cuda.synchronize()
+    assert torch.equal(l2, l11)
 
 
 @pytest.mark.cuda
@@ -1854,26 +1986,36 @@ def test_masked_rank_k_kernel_nan_and_complex(cuda):
     (300, 64, False, torch.float32), (1000, 200, False, torch.float32),
     (1024, 256, True, torch.float32), (64, 64, False, torch.float32),
     (500, 96, False, torch.float64), (40, 1, False, torch.float32),
+    (4096, 512, False, torch.float32), (4096, 512, True, torch.float32),
+    (3000, 513, False, torch.float32), (4096, 2048, True, torch.float32),
+    (2000, 400, False, torch.float64), (1000, 384, False, torch.float64),
 ])
 def test_potrf_panel_tail_kernel_vs_plain(cuda, Mt, w, low, dt):
-    """K3b against its plain version: L11 equal to K3a's bit for bit;
-    L21 within 1e-5 of max|L| (float32), 1e-12 (float64), 5e-4 with
-    low_apply (bf16 operands rounded from two inverses that differ in
-    float32 rounding), and then more than ten times that error away from
-    K3b without low_apply (so the rounding is really done); a block that
-    is not positive definite gives NaN everywhere."""
+    """K3b on route()'s choice against its plain version: L11 equal to
+    K3a's bit for bit; L21 within 1e-5 of max|L| (float32), 1e-12
+    (float64), 5e-4 with low_apply (bf16 operands rounded from two
+    inverses that differ in float32 rounding), and then more than ten
+    times that error away from K3b without low_apply (so the rounding is
+    really done); a block that is not positive definite gives NaN
+    everywhere."""
+    k3 = importlib.import_module("elementalx_torch.kernels.potrf")
+
     g = torch.Generator(device=cuda).manual_seed(2)
     x = torch.randn((w, w), generator=g, device=cuda, dtype=torch.float64)
     sym = (x @ x.mT / w + 2 * torch.eye(w, device=cuda,
                                         dtype=torch.float64)).to(dt)
     pan = torch.randn((Mt, w), generator=g, device=cuda).to(dt)
     pan[:w] = float("nan")  # rows of the diagonal block are never read
-    before = potrf_panel_tail.launches
+    rt = k3.route(w, dt)
+    before = (potrf_panel_tail.launches,
+              getattr(potrf_panel_tail, f"launches_{rt}"))
     out = potrf_panel_tail(sym, pan, low_apply=low)
     ref = potrf_panel_tail_plain(sym, pan, low_apply=low)
     l11, _ = potrf_block_inv(sym)
     torch.cuda.synchronize()
-    assert potrf_panel_tail.launches == before + 1
+    assert (potrf_panel_tail.launches,
+            getattr(potrf_panel_tail, f"launches_{rt}")) == \
+        (before[0] + 1, before[1] + 1)
     assert torch.equal(out[:w], l11)
     rtol = 5e-4 if low else (1e-12 if dt == torch.float64 else 1e-5)
     if Mt > w:
@@ -1884,6 +2026,45 @@ def test_potrf_panel_tail_kernel_vs_plain(cuda, Mt, w, low, dt):
             torch.cuda.synchronize()
             assert (out[w:] - unrounded[w:]).abs().max().item() > 10 * err
     bad = potrf_panel_tail(-sym, pan)
+    torch.cuda.synchronize()
+    assert bool(bad.isnan().all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Mt,w,dt", [
+    (1000, 200, torch.float32), (2100, 512, torch.float32),
+    (700, 33, torch.float64), (2000, 600, torch.float32),
+    (900, 400, torch.float64)])
+@pytest.mark.parametrize("rt", ["cluster", "blocked", "grid"])
+def test_potrf_panel_tail_routes_vs_plain(cuda, rt, Mt, w, dt):
+    """Each K3b route against the plain version (tolerances as above), with
+    strided panel views, the same bits on a second run, L11 equal to K3a's
+    on the same route (cluster and blocked), and NaN in every row for a
+    block that is not positive definite."""
+    k3 = importlib.import_module("elementalx_torch.kernels.potrf")
+
+    g = torch.Generator(device=cuda).manual_seed(w)
+    x = torch.randn((w, w), generator=g, device=cuda, dtype=torch.float64)
+    sym = (x @ x.mT / w + 2 * torch.eye(w, device=cuda,
+                                        dtype=torch.float64)).to(dt)
+    if rt == "cluster" and w > k3.CLUSTER_MAX_W[dt]:
+        with pytest.raises(ValueError):
+            k3._tail_launch(rt, sym, sym, 0, False)
+        return
+    wide = torch.randn((Mt, w + 8), generator=g, device=cuda).to(dt)
+    pan = wide[:, 3:3 + w]  # rows w + 8 apart, an odd offset
+    out = k3._tail_launch(rt, sym, pan, 0, False)
+    again = k3._tail_launch(rt, sym, pan, 0, False)
+    ref = potrf_panel_tail_plain(sym, pan)
+    torch.cuda.synchronize()
+    rtol = 1e-12 if dt == torch.float64 else 1e-5
+    assert (out - ref).abs().max().item() <= rtol * ref.abs().max().item()
+    assert torch.equal(out, again)
+    if rt != "grid":
+        l11, _ = k3._launch(rt, sym)
+        torch.cuda.synchronize()
+        assert torch.equal(out[:w], l11)
+    bad = k3._tail_launch(rt, -sym, pan, 0, False)
     torch.cuda.synchronize()
     assert bool(bad.isnan().all())
 
