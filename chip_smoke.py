@@ -297,6 +297,29 @@ def main() -> None:
                                     + ev.time_range.elapsed_us() / 1e3)
         return wall, by_name, count
 
+    def window_kernels(fn, calls):
+        """Names of the device kernels of `calls` calls of fn, as
+        torch.profiler records them. A window that opens just before the
+        launches loses some or all of them (CUPTI starts late, and kineto
+        drops records stamped outside the window), so the launches run in
+        the second step of a scheduled window, after a warm-up step of the
+        same calls, with 20 ms of idle host time around them."""
+        from torch.profiler import ProfilerActivity, profile, schedule
+
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                time.sleep(0.02)
+                for _ in range(calls):
+                    fn()
+                sync()
+                time.sleep(0.02)
+                prof.step()
+        return [ev.name for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA]
+
     def time_pair(kernel, plain, iters):
         """Kernel and plain version in turns: plain, kernel, kernel, plain."""
         p1 = time_ms(plain, iters)
@@ -1805,16 +1828,8 @@ def main() -> None:
     add_call = lambda: torch.add(y, x, alpha=0.3)  # noqa: E731
     h1, a1, a2, h2 = (host_us(k9_call), host_us(add_call),
                       host_us(add_call), host_us(k9_call))
-    from torch.profiler import ProfilerActivity, profile
-    sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            k9_call()
-        sync()
-    # the profiler may miss the first launches of a window, never add any:
-    # every kernel it saw must be K9's and at most one a call
-    kern = [ev.name for ev in prof.events()
-            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    kern = window_kernels(k9_call, 10)
+    # every kernel the profiler saw must be K9's and at most one a call
     require(0 < len(kern) <= 10 and all("ew_flat_kernel" in k for k in kern),
             f"K9 axpby with Python-number scalars, 10 calls: device kernels "
             f"{kern}")

@@ -2316,7 +2316,9 @@ def test_elementwise_number_scalars_launch_one_kernel(cuda):
     """With Python-number scalars each K9 call runs exactly one device
     kernel (the scalars go by value): torch.profiler sees at most one a
     call, every one the entry's own kernel."""
-    from torch.profiler import ProfilerActivity, profile
+    import time
+
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     x = torch.ones((1024, 256), device=cuda)
     y = torch.ones((1024, 256), device=cuda)
@@ -2328,11 +2330,19 @@ def test_elementwise_number_scalars_launch_one_kernel(cuda):
                           + ("transpose_kernel",)):
         call()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                call()
-            torch.cuda.synchronize()
-        # the profiler may miss the first launches of a window, never add
+        # a window that opens just before the launches may lose some or all
+        # of them: the calls are recorded in the step after a warm-up step,
+        # with idle host time around them; the profiler never adds a kernel
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                time.sleep(0.02)
+                for _ in range(5):
+                    call()
+                torch.cuda.synchronize()
+                time.sleep(0.02)
+                prof.step()
         kernels = [e.name for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         assert 0 < len(kernels) <= 5, kernels
