@@ -13,10 +13,13 @@ Phases (each raises on failure, so the script exits non-zero):
      their .mT in 4-byte copies on 64 x 128 tiles), bfloat16 on the
      tensor cores (the Cholesky history product with B a .mH view into
      float32, and 16384^3), the dist step's SUMMA_C k-panel (8192 x 128)
-     (128 x 2) on the skinny route (the same bits twice), float64 2048^3
-     and misaligned bf16 on the FMA core; each timed against
-     ``torch.matmul`` in the operands' type and its bound at the right
-     peak (FP64 FMA 33.5 TFLOP/s for float64);
+     (128 x 2) on the skinny route (the same bits twice), float64 on the
+     FP64 tensor cores ("dmma": 2048^3, timed in turns with the FMA core
+     it replaced; the history product with B a .mH view; rows of 777
+     doubles and their .mT in 8-byte copies; the same bits twice) and
+     misaligned bf16 on the FMA core; each timed against ``torch.matmul``
+     in the operands' type and its bound at the right peak (67 TFLOP/s
+     of FP64 on the tensor cores for every float64 product);
   3. K3a (Cholesky diagonal block) against its plain version at w=512,
      2048 and 200 on every route that takes the width (the cluster route,
      the blocked route and the first design "steps"): exact zeros outside
@@ -24,11 +27,18 @@ Phases (each raises on failure, so the script exits non-zero):
      definite, the same bits twice; the routes and the plain version
      timed in turns beside the library pair (cholesky_ex, then
      solve_triangular) and cholesky_ex alone, with the chain floor (two
-     cluster barriers a 32-wide step, kernels/sync_probe.py);
+     cluster barriers a 32-wide step, kernels/sync_probe.py); and float64
+     at w=512, the float64 HPD step's panel, on the blocked route (1e-12,
+     the same checks) in turns with the plain version;
   4. the slice: ``elementalx_torch.entry`` at n=16384, nrhs=256, float32,
      with the scaled residual checked in float64 and the kernels' launch
-     counts read around the run; and a small float64 run held against the
-     same step on the CPU (plain versions). From here on every K1 launch
+     counts read around the run; the same step in float64, twice, gated on
+     its scaled residual, on every K1 product wider than 16 columns
+     taking the FP64 tensor cores ("dmma", none the FMA core) and on its
+     32 panels taking K3a's blocked route, with K3a's and K9's launches
+     read around the first run; and a small
+     float64 run held against the same step on the CPU (plain versions).
+     From here on every K1 launch
      on the FMA core is named by its operands, and the float64 runs of the
      slices against the CPU (phases 4, 6, 8, 11, 14) count their K1
      launches by core;
@@ -73,11 +83,15 @@ Phases (each raises on failure, so the script exits non-zero):
      (lower-triangle symv) against their plain versions at the level-3,
      HPD and symv shapes, K3b and K7 on the route ``route`` gives each
      case (K3b: the cluster route, or the blocked one at w=2048; K7: TMA
-     tiles, or the scalar unit at n=16383); K3b's routes and its first
+     tiles, or the same tiles filled by cp.async at n=16383 f32 and an
+     odd float64 order, equal bit for bit to the TMA core on a copy with
+     16-byte rows); K3b's routes and its first
      design ("grid") at (16384, 512) and (8192, 2048) in turns with the
      plain version beside the library pair and the factor's chain floor,
-     K3c's route against the first design at kidx 15; K7 with its GB/s
-     and its two cores in turns at n=16384; K3c once at each of the HPD
+     K3c's route against the first design at kidx 15; K7 with its GB/s,
+     the TMA core in turns with the scalar unit (the first design) at
+     n=16384 and the cp.async core in turns with it at n=16383; K3c once
+     at each of the HPD
      path's 32 panel shapes, the launches its JSON entry reports;
  10. the fused-tail HPD slice: ``entry()`` at n=16384 under
      ``ELX_PALLAS_POTRF=1`` (set for the phase only), gated on the scaled
@@ -86,7 +100,8 @@ Phases (each raises on failure, so the script exits non-zero):
      through the fused tail beside the default path, gated on every
      history product taking K1's tensor cores and none its FMA core, with
      its time; and the public Herk,
-     Trrk and Symv (n=16384 and 16383: one launch on each K7 core) at
+     Trrk and Symv (n=16384 and 16383: one launch on the TMA core and one
+     on the cp.async core) at
      phase 9's shapes, with their K2/K7 launch counts;
  11. the HermitianGenDefEig slice: ``gen_def_eig_step`` at n=8192,
      float32, AXBX, with the fused tail, gated on the scaled residual,
@@ -130,13 +145,17 @@ Phases (each raises on failure, so the script exits non-zero):
 Phases 4, 6, 8, 10 and 11 also read K9's launches (the residual Gemm's
 beta C is a K9 axpby) and gate that no K9 transpose runs on their paths.
 The line before the last is a JSON summary of the kernels (K1 and K8 one
-row per core that the main paths launched, the float64 runs included,
-K7 one per core), each with
-its bound (the
-larger of its bytes over 3.35 TB/s and its operations over the peak of the
-units it runs on: 67 TFLOP/s FP32, 989 TFLOP/s dense bf16 on the tensor
-cores, the H100 SXM's published peaks; 33.5 TFLOP/s of FP64 FMA for the
-FMA core's float64 row); the last line is
+row per core that the main paths launched, the float64 HPD step
+included, K7 one per routed core), each with its bound (the larger of
+its bytes over 3.35 TB/s and its operations over the peak of the units
+it runs on: 67 TFLOP/s FP32, 989 TFLOP/s dense bf16 on the tensor cores,
+the H100 SXM's published peaks; for every float64 product the 67
+TFLOP/s of FP64 on the tensor cores, whatever units the core runs on);
+the line before it, ``off_path_kernels``, holds the cores no main path
+launched (the FMA core, its float64 time in turns with "dmma"; K7's
+scalar unit; K3's first designs; K3a's blocked route at float32
+w=2048: on the main paths that route runs in float64 alone, at the
+float64 HPD step's w=512); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
 repository, it fails and prints no result.
 """
@@ -160,10 +179,11 @@ def require(cond: bool, msg: str) -> None:
 
 
 #: H100 SXM published peaks: FP32 outside the tensor cores, dense bf16 on
-#: the tensor cores, HBM3; FP64 FMA outside the tensor cores (the FMA
-#: core's float64); and its L2's size
+#: the tensor cores, HBM3; FP64 on the tensor cores (the least time of any
+#: float64 product, whatever units a core runs on: the FMA units give
+#: half); and its L2's size
 PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
-PEAK_FP64 = 33.5e12
+PEAK_FP64_TC = 67e12
 L2_BYTES = 50e6
 
 
@@ -360,7 +380,9 @@ def main() -> None:
     # at most 16 columns: "skinny"; float32 with a unit stride in each
     # operand: "fma_async", in 16-byte copies where the operands allow and
     # in 4-byte ones otherwise; bfloat16: "wgmma", or "fma" for a
-    # misaligned operand; wider float64: "fma") and must launch it.
+    # misaligned operand; wider float64 with a unit stride in each
+    # operand: "dmma", on the FP64 tensor cores, in 16-byte copies or
+    # 8-byte ones for rows of an odd number of doubles) and must launch it.
     # Tolerance: max|C - C_plain| <= rtol * max|C_plain|. float32: both
     # are FP32 FMA sums of K terms in possibly different orders, so 1e-5
     # (about 100 eps) covers K up to 16384; float64 1e-12; bfloat16
@@ -369,8 +391,11 @@ def main() -> None:
     # into float32: exact products of bf16 values summed in f32 in another
     # order (the tensor cores' blocks against cuBLAS's), 1e-4 at K <=
     # 16384. Every "fma_async" result also equals the FMA core's bit for
-    # bit (the same fma chain over k for every entry), and the skinny
-    # route gives the same bits on a second run.
+    # bit (the same fma chain over k for every entry); the skinny and
+    # "dmma" routes give the same bits on a second run, and "dmma" is
+    # timed in turns with the FMA core it replaced (the float64 products'
+    # first core). Every float64 product is bounded at the FP64
+    # tensor-core peak.
     # The history case as the Cholesky gives it: rows of an n x n buffer
     # times the .mH view of the panel's rows. The skinny case as the dist
     # step's SUMMA_C gives it: a 128-column k-panel of an 8192 x 8192 A
@@ -407,13 +432,24 @@ def main() -> None:
          "fma_async", 1e-5, PEAK_FP32),
         ("f64 2048^3", lambda: (randn(2048, 2048, dtype=torch.float64),
                                 randn(2048, 2048, dtype=torch.float64)),
-         None, "fma", 1e-12, PEAK_FP64),
+         None, "dmma", 1e-12, PEAK_FP64_TC),
+        ("history f64, B = row.mH", lambda: history(torch.float64), None,
+         "dmma", 1e-12, PEAK_FP64_TC),
+        ("ragged f64 (rows of 777 doubles)",
+         lambda: (randn(1000, 777, dtype=torch.float64),
+                  randn(777, 1001, dtype=torch.float64)), None, "dmma",
+         1e-12, PEAK_FP64_TC),
+        ("ragged transposed f64",
+         lambda: (randn(777, 1000, dtype=torch.float64).mT,
+                  randn(1001, 777, dtype=torch.float64).mT), None, "dmma",
+         1e-12, PEAK_FP64_TC),
         ("misaligned bf16 (rows of 258 bytes)",
          lambda: (randn(257, 129, dtype=torch.bfloat16),
                   randn(129, 65, dtype=torch.bfloat16)), None, "fma", 1e-2,
          PEAK_FP32),
     ]
     k1_main, k1_case = {}, {}
+    k1_fma_f64 = None  # (err, ms, case): the FMA core in turns with dmma
     for name, make, out_dt, core, rtol, peak in k1_cases:
         a, b = make()
         M, K = a.shape
@@ -444,6 +480,25 @@ def main() -> None:
                     lambda: k1_launch("fma", a, b, torch.float32), 10)
                 same += (f" (in turns: pipeline {pipe_ms:.4f} ms, FMA core "
                          f"{fma_ms:.4f} ms)")
+        if core == "dmma":
+            require(torch.equal(c, matmul(a, b)),
+                    f"K1 {name}: two runs give different bits")
+            copies = 8 if k1_module.narrow_copies(a, b) else 16
+            same = f", the same bits on a second run ({copies}-byte copies)"
+            if "2048^3" in name:
+                # the FP64 tensor cores in turns with the FMA core, the
+                # float64 products' first core
+                dmma_ms, fma_ms = time_pair(
+                    lambda: matmul(a, b),
+                    lambda: k1_launch("fma", a, b, torch.float64), 10)
+                fma_err = (k1_launch("fma", a, b, torch.float64)
+                           - ref).abs().max().item()
+                require(fma_err <= rtol * scale,
+                        f"K1 {name} on fma: max_abs_err {fma_err} > {rtol} "
+                        f"* {scale}")
+                k1_fma_f64 = (fma_err, fma_ms, f"{name} ({M}x{K})x({K}x{N})")
+                same += (f" (in turns: dmma {dmma_ms:.4f} ms, FMA core "
+                         f"{fma_ms:.4f} ms, max_abs_err {fma_err:.3e})")
         if core == "skinny":
             require(torch.equal(c, matmul(a, b)),
                     f"K1 {name}: two runs give different bits")
@@ -593,6 +648,52 @@ def main() -> None:
                                pair_ms, floor)
         del sym, l_ref, inv_ref
 
+    # float64 at w=512, the width and type the float64 HPD step of phase 4
+    # gives K3a: the blocked route (float64's cluster route stops at
+    # CLUSTER_MAX_W = 384), whose products run on K1's FMA core inside
+    # K3a. Tolerance 1e-12 of max|plain|; the same checks as above.
+    w = 512
+    g = randn(w, w, dtype=torch.float64)
+    sym = g @ g.mT / w + 2 * torch.eye(w, device=dev, dtype=torch.float64)
+    rt = k3_route(w, torch.float64)
+    require(rt == "blocked", f"K3a w={w} f64: route {rt}")
+    l_ref, inv_ref = potrf_block_inv_plain(sym)
+    scale = max(l_ref.abs().max().item(), inv_ref.abs().max().item())
+    k3_reset()
+    l11, inv_lh = k3a_launch(rt, sym)
+    again = k3a_launch(rt, sym)
+    sync()
+    require(potrf_block_inv.launches_blocked == 2
+            and potrf_block_inv.launches == 2,
+            f"K3a w={w} f64 {rt}: launches not counted on the route")
+    err = max((l11 - l_ref).abs().max().item(),
+              (inv_lh - inv_ref).abs().max().item())
+    require(err <= 1e-12 * scale,
+            f"K3a w={w} f64 {rt}: max_abs_err {err} > 1e-12 * {scale}")
+    require(l11.triu(1).abs().max().item() == 0.0
+            and inv_lh.tril(-1).abs().max().item() == 0.0,
+            f"K3a w={w} f64 {rt}: nonzero entries outside the triangles")
+    require(torch.equal(again[0], l11) and torch.equal(again[1], inv_lh),
+            f"K3a w={w} f64 {rt}: two runs give different bits")
+    bad_l, bad_inv = k3a_launch(rt, -sym)
+    sync()
+    require(bool(bad_l.isnan().all()) and bool(bad_inv.isnan().all()),
+            f"K3a w={w} f64 {rt}: a non-HPD block was not poisoned")
+    del l11, inv_lh, again, bad_l, bad_inv
+    ms = in_turns({rt: lambda: k3a_launch(rt, sym),
+                   "plain": lambda: potrf_block_inv_plain(sym)}, 10)
+    pair_ms = time_ms(lambda: lib_pair(sym), 10)
+    bound = roofline(2 * w ** 3 / 3, 24 * w * w, PEAK_FP64_TC)
+    print(f"K3a w={w} f64 on {rt}: max_abs_err {err:.3e} (tol 1e-12 x "
+          f"{scale:.3e}), zeros outside the triangles, non-HPD -> NaN, the "
+          f"same bits twice; in turns: kernel {ms[rt]:.4f} ms, plain "
+          f"{ms['plain']:.4f} ms; library pair (cholesky_ex + "
+          f"solve_triangular) {pair_ms:.4f} ms; bound {bound[0]:.4f} ms "
+          f"({bound[1]})")
+    k3_main["blocked f64"] = (err, ms[rt], ms["plain"], bound, w, pair_ms,
+                              None)
+    del sym, l_ref, inv_ref
+
     # From here on every K1 launch on the FMA core is named by its operands
     # (fma_named), and the float64 runs of the slices against the CPU
     # count their K1 launches by core (f64_k1): float64 of more than 16
@@ -662,6 +763,48 @@ def main() -> None:
           f"{first_ms:.1f} ms (first run), {again_ms:.1f} ms (second run); "
           f"scaled residual max|AX-B|/(eps n max|B|) = {resid:.4f}; "
           f"||R||_F = {nrm.item():.4e}; launches {launches}")
+
+    # The same step in float64 at full width: every product wider than 16
+    # columns on K1's FP64 tensor cores ("dmma"), none on the FMA core.
+    step, (a64, b64) = entry(n=n, nrhs=nrhs, dtype=torch.float64, device=dev)
+    sync()
+    k1_reset()
+    k3_reset()
+    k9_reset()
+    t0 = time.perf_counter()
+    x64, nrm64 = step(a64, b64)
+    sync()
+    first64_ms = (time.perf_counter() - t0) * 1e3
+    hpd64_launches = {"K1": matmul.launches, "K1 cores": k1_counts(),
+                      "K3a": potrf_block_inv.launches,
+                      "K3a routes": k3a_routes(),
+                      "K9": k9_counts()}
+    t0 = time.perf_counter()
+    step(a64, b64)
+    sync()
+    again64_ms = (time.perf_counter() - t0) * 1e3
+    require(tuple(x64.shape) == (n, nrhs)
+            and bool(torch.isfinite(x64).all())
+            and bool(torch.isfinite(nrm64)),
+            "float64 HPD step: non-finite X or residual norm")
+    eps64 = torch.finfo(torch.float64).eps
+    resid64 = ((a64 @ x64 - b64).abs().max()
+               / (eps64 * n * b64.abs().max())).item()
+    require(resid64 < 100, f"float64 HPD step: scaled residual {resid64}")
+    cores64 = hpd64_launches["K1 cores"]
+    require(cores64["dmma"] > 0 and all(
+        v == 0 for c, v in cores64.items() if c not in ("dmma", "skinny")),
+            f"float64 HPD step: a product wider than 16 columns off the "
+            f"FP64 tensor cores: {cores64}")
+    # its 512-wide panels take K3a's blocked route in float64
+    require(hpd64_launches["K3a"] == 32
+            and hpd64_launches["K3a routes"]["blocked"] == 32,
+            f"float64 HPD step: not 32 K3a panels on the blocked route: "
+            f"{hpd64_launches}")
+    print(f"slice HPDSolve + residual Gemm + Nrm2, n={n} nrhs={nrhs} f64: "
+          f"{first64_ms:.1f} ms (first run), {again64_ms:.1f} ms (second "
+          f"run); scaled residual {resid64:.4f}; launches {hpd64_launches}")
+    del a64, b64, x64
 
     # ---- 5. K4 against torch.linalg.lu_factor (getrf_panel_plain) ----
     # Checked in float64 on the kernel's own factor: lperm a permutation;
@@ -1187,19 +1330,22 @@ def main() -> None:
             lambda: masked_rank_k_plain(lower, -1.0, a, b, 1.0, c), iters)
         tri = sum(min(i + 1, N) if lower else max(N - i, 0)
                   for i in range(M))
+        # float64 bounded at the FP64 tensor-core peak, float32 at FP32
+        bound = roofline(2 * K * tri, dt.itemsize * (M * K + K * N + 2 * tri),
+                         PEAK_FP64_TC if dt == torch.float64 else PEAK_FP32)
         print(f"K2 {name} ({M}x{K})x({K}x{N}) {'lower' if lower else 'upper'}"
               f" {str(dt)[6:]}: max_abs_err {err:.3e} (tol {rtol} x "
               f"{scale:.3e}), off-triangle entries equal C  kernel "
               f"{ms:.4f} ms ({2 * K * tri / ms / 1e9:.2f} TFLOP/s on the "
-              f"triangle)  plain {plain_ms:.4f} ms")
+              f"triangle; bound {bound[0]:.4f} ms, {bound[1]})  plain "
+              f"{plain_ms:.4f} ms")
         if k2_main is None:
             addmm_ms = time_ms(lambda: torch.where(
                 tri_off(M, N, lower), c, torch.addmm(c, a, b, alpha=-1.0)),
                 iters)
             print(f"K2 context: torch.addmm over the full square + "
                   f"torch.where {addmm_ms:.4f} ms")
-            k2_main = (err, ms, plain_ms,
-                       roofline(2 * K * tri, 4 * (M * K + K * N + 2 * tri)))
+            k2_main = (err, ms, plain_ms, bound)
         del a, b, c
 
     # K3b tolerance: L21 within 1e-5 of max|plain| (float32; a block of
@@ -1366,14 +1512,19 @@ def main() -> None:
     # order), 1e-12 in float64; NaN in the strict upper triangle must not
     # reach y; two runs give the same bits. Each case names the core
     # route() gives it: the TMA tiles for rows 16-byte multiples apart (any
-    # k0), the scalar unit otherwise (n = 16383 float32, the order of
-    # phase 10's second Symv). At n = 16384 the two cores also run in turns
-    # (tma, unit, unit, tma) through their C entries.
-    k7_main = {}
+    # k0), the same tiles filled by cp.async otherwise (n = 16383 float32,
+    # the order of phase 10's second Symv, and an odd float64 order). At n
+    # = 16384 the TMA core runs in turns with the scalar unit (tma, unit,
+    # unit, tma) through their C entries; at n = 16383 the cp.async core
+    # runs in turns with it, the core it replaced on that route, and
+    # equals the TMA core bit for bit on a copy of A whose rows are 16-byte
+    # multiples apart (the same tiles, walk and sums).
+    k7_main, k7_unit = {}, None
     for n7, k0, dt, want in ((16384, 0, torch.float32, "tma"),
                              (16384, 5000, torch.float32, "tma"),
                              (4096, 0, torch.float64, "tma"),
-                             (16383, 0, torch.float32, "unit")):
+                             (16383, 0, torch.float32, "async"),
+                             (4095, 0, torch.float64, "async")):
         A = randn(n7, n7, dtype=dt)
         v = randn(n7 - k0, dtype=dt)
         An = A.clone()
@@ -1384,43 +1535,64 @@ def main() -> None:
         require(core == want, f"K7 n={n7} k0={k0}: route {core}, not {want}")
         run = (lambda: symv_lower(An, v)) if k0 == 0 else \
             (lambda: symv_lower_trailing(An, v, k0))
+        k7_reset()
         y, y2 = run(), run()
         ref = symv_lower_plain(A[k0:, k0:], v)
         sync()
+        require(getattr(symv_lower, f"launches_{core}") == 2,
+                f"K7 n={n7}: the launches did not count on {core}")
         rtol = 1e-5 if dt == torch.float32 else 1e-12
         err = (y - ref).abs().max().item()
         scale = ref.abs().max().item()
         require(err <= rtol * scale, f"K7 n={n7} k0={k0}: {err} > {rtol} * "
                                      f"{scale}")
         require(torch.equal(y, y2), f"K7 n={n7}: two runs differ")
+        extra = ""
+        if core == "async":
+            per = 16 // A.element_size()
+            aligned = torch.empty((n7, -(-n7 // per) * per), device=dev,
+                                  dtype=dt)[:, :n7]
+            aligned.copy_(An)
+            require(k7_route(aligned) == "tma"
+                    and torch.equal(k7_launch("tma", aligned, v), y),
+                    f"K7 n={n7}: the cp.async core differs from the TMA "
+                    "core on an aligned copy")
+            extra = ", equal to the TMA core on a 16-byte-row copy"
+            del aligned
         ms, plain_ms = time_pair(run, lambda: symv_lower_plain(A[k0:, k0:], v),
                                  10)
         m7, esz = n7 - k0, A.element_size()
         tri_bytes = esz * m7 * (m7 + 1) / 2
         b7 = roofline(2 * m7 * m7, tri_bytes + esz * 2 * m7)
-        extra = ""
         if k0 == 0 and dt == torch.float32:
             H = torch.tril(A) + torch.tril(A, -1).mT
             lib_ms = time_ms(lambda: torch.mv(H, v), 10)
             del H
             k7_main[core] = (err, ms, plain_ms, lib_ms, b7)
-            extra = (f"  torch.mv on the full symmetric matrix {lib_ms:.4f} "
-                     f"ms")
+            extra += (f"  torch.mv on the full symmetric matrix {lib_ms:.4f} "
+                      f"ms")
         print(f"K7 symv ({core}) n={n7} k0={k0} {str(dt)[6:]} (NaN above the "
               f"diagonal): max_abs_err {err:.3e} (tol {rtol} x {scale:.3e}),"
-              f" same bits twice  kernel {ms:.4f} ms "
+              f" same bits twice{extra}  kernel {ms:.4f} ms "
               f"({tri_bytes / ms / 1e6:.1f} GB/s of the triangle; bound "
               f"{b7[0]:.4f} ms, {b7[0] / ms:.1%} of it)  plain "
-              f"{plain_ms:.4f} ms{extra}")
-        if core == "tma" and n7 == 16384 and k0 == 0:
-            tma_ms, unit_ms = time_pair(lambda: k7_launch("tma", An, v),
-                                        lambda: k7_launch("unit", An, v), 10)
-            print(f"K7 cores in turns at n={n7} f32: tma {tma_ms:.4f} ms "
-                  f"({tri_bytes / tma_ms / 1e6:.1f} GB/s), unit "
-                  f"{unit_ms:.4f} ms ({tri_bytes / unit_ms / 1e6:.1f} GB/s)")
+              f"{plain_ms:.4f} ms")
+        if n7 in (16384, 16383) and k0 == 0:
+            core_ms, unit_ms = time_pair(lambda: k7_launch(core, An, v),
+                                         lambda: k7_launch("unit", An, v), 10)
+            print(f"K7 cores in turns at n={n7} f32: {core} {core_ms:.4f} ms "
+                  f"({tri_bytes / core_ms / 1e6:.1f} GB/s), unit (the first "
+                  f"design) {unit_ms:.4f} ms ({tri_bytes / unit_ms / 1e6:.1f} "
+                  f"GB/s)")
+            if core == "async":
+                uy = k7_launch("unit", An, v)
+                sync()
+                k7_unit = ((uy - ref).abs().max().item(), unit_ms, plain_ms,
+                           lib_ms, b7)
+                del uy
         del A, An, v, y, y2, ref
-    require(set(k7_main) == set(K7_CORES), f"K7: no row for "
-                                           f"{set(K7_CORES) - set(k7_main)}")
+    require(set(k7_main) == {"tma", "async"} and k7_unit is not None,
+            f"K7: rows {set(k7_main)}")
 
     # ---- 10. the fused-tail HPD slice ----
     os.environ["ELX_PALLAS_POTRF"] = "1"
@@ -1530,7 +1702,7 @@ def main() -> None:
     B2 = Et.DistMatrix.from_global(b, grid=g2)
     C2 = Et.DistMatrix.from_global(c, grid=g2)
     # Symv at n (rows 16-byte multiples apart: K7's TMA tiles) and at
-    # n - 1 (float32 rows of 65532 bytes: the scalar unit)
+    # n - 1 (float32 rows of 65532 bytes: the tiles filled by cp.async)
     hv = randn(n, n)
     xv = randn(n, 1)
     H2 = Et.DistMatrix.from_global(hv, grid=g2)
@@ -1552,8 +1724,8 @@ def main() -> None:
                      "K7": {core: getattr(symv_lower, f"launches_{core}")
                             for core in K7_CORES},
                      "K1": matmul.launches}
-    require(blas_launches == {"K2": 2, "K7": {"tma": 1, "unit": 1},
-                              "K1": 0},
+    require(blas_launches == {"K2": 2, "K7": {"tma": 1, "async": 1,
+                                              "unit": 0}, "K1": 0},
             f"Herk/Trrk/Symv launches {blas_launches}")
     checks = ((Hk.data, masked_rank_k_plain(True, -1.0, a, a.mT, 1.0, c)),
               (Tk.data, masked_rank_k_plain(True, -1.0, a, b, 1.0, c)),
@@ -2336,8 +2508,8 @@ def main() -> None:
               f"max|dR3| {err:.3e} of {scale:.3e}, norms within {norms:.3e}")
 
     # each entry's launches on every path that reads K9's counts
-    k9_paths = ([launches, lu_launches, fused_launches, gd_launches,
-                 dist_launches]
+    k9_paths = ([launches, hpd64_launches, lu_launches, fused_launches,
+                 gd_launches, dist_launches]
                 + list(eig_launches.values()) + list(ls_runs.values()))
     k9_launches = {name: sum(r["K9"][name] for r in k9_paths)
                    + l1_launches[name] for name in k9_entries}
@@ -2357,8 +2529,8 @@ def main() -> None:
     # over the dist step and the ring_summa entry. The float64 runs
     # against the CPU are off the main paths: their K1 launches are
     # printed apart and count in no row of the kernels line.
-    k1_paths = ([launches, lu_launches, fused_launches, gd_launches,
-                 dist_launches] + list(eig_launches.values())
+    k1_paths = ([launches, hpd64_launches, lu_launches, fused_launches,
+                 gd_launches, dist_launches] + list(eig_launches.values())
                 + list(ls_runs.values()))
     k1_launches = {core: sum(r["K1 cores"][core] for r in k1_paths)
                    + sum(c[core] for c in chol16.values())
@@ -2369,7 +2541,7 @@ def main() -> None:
                    + sum(c[core] for c in k8_entry.values())
                    for core in K8_CORES}
     require(k1_launches["wgmma"] > 0 and k1_launches["fma_async"] > 0
-            and k1_launches["skinny"] > 0
+            and k1_launches["skinny"] > 0 and k1_launches["dmma"] > 0
             and k8_launches["wgmma"] > 0 and k8_launches["fma_async"] > 0,
             f"a K1 or K8 core never launched on the paths: K1 {k1_launches}"
             f", K8 {k8_launches}")
@@ -2393,9 +2565,12 @@ def main() -> None:
         ("skinny", "gemm_skinny.cu",
          "K1 local GEMM, skinny route: f32/f64 C of at most 16 columns "
          "(matmul; A streamed once)"),
+        ("dmma", "matmul.cu",
+         "K1 local GEMM f64 (matmul; FP64 tensor cores, mma.sync fed by "
+         "cp.async, gemm_dmma.cuh)"),
         ("fma", "matmul.cu",
-         "K1 local GEMM, FMA core for float64 and operands the fast cores "
-         "cannot read (matmul; gemm_tile.cuh)"),
+         "K1 local GEMM, FMA core for operands the fast cores cannot read "
+         "(matmul; gemm_tile.cuh)"),
     ]
     kernels = [
         row(name, csrc + src, "elementalx/kernels/matmul.py:39",
@@ -2412,12 +2587,28 @@ def main() -> None:
             k1_main[core][3])
         for core, src, name in k1_rows if k1_launches[core] == 0
     ]
+    # the float64 products' first core, timed in turns with "dmma" at
+    # f64 2048^3 (the float64 runs do not reach it any more)
+    fma_err, fma_ms, fma_case = k1_fma_f64
+    dmma_row = k1_main["dmma"]
+    off_path.append(row(
+        f"K1 local GEMM, FMA core in float64 (gemm_tile.cuh), the float64 "
+        f"products' first core: off the main paths; in turns with dmma at "
+        f"phase 2's {fma_case}", csrc + "matmul.cu",
+        "elementalx/kernels/matmul.py:39", 0,
+        (fma_err, fma_ms, dmma_row[2], dmma_row[4]), dmma_row[3]))
+    off_path.append(row(
+        "K7 lower-triangle symv, the first design (scalar unit), which no "
+        "route takes: off the main paths; in turns with async at n=16383",
+        csrc + "symv.cu", "elementalx/kernels/symv.py:66", 0, k7_unit,
+        k7_unit[3]))
     # K3a's and K3b's launches by route over the main-path runs (the HPD
-    # default and fused paths, the bf16-storage Cholesky's two, GenDefEig);
-    # the routes they did not launch (K3a's blocked route, which only
-    # w > 512 takes, and the first designs, which no path takes) keep their
-    # phase 3 and 9 rows on the off-path line.
+    # default and fused paths in float32, the float64 HPD step, the
+    # bf16-storage Cholesky's two, GenDefEig); K3a's blocked route is the
+    # float64 step's alone, and the first designs, which no path takes,
+    # keep their phase 3 and 9 rows on the off-path line.
     k3a_paths = {rt: launches["K3a routes"][rt]
+                 + hpd64_launches["K3a routes"][rt]
                  + sum(a[rt] for a, _ in k3_16.values())
                  for rt in K3A_ROUTES}
     k3b_paths = {rt: fused_launches["K3b routes"][rt]
@@ -2426,13 +2617,15 @@ def main() -> None:
                  for rt in K3B_ROUTES}
     print(f"K3a launches by route on the main paths: {k3a_paths}; K3b "
           f"{k3b_paths}")
-    require(all(k3a_paths[rt] == 0 for rt in ("blocked", "steps"))
+    require(k3a_paths["steps"] == 0 and k3a_paths["blocked"]
+            == hpd64_launches["K3a routes"]["blocked"]
             and k3b_paths["grid"] == 0,
             f"a K3 route off the main paths launched: {k3a_paths} "
             f"{k3b_paths}")
     off_path += [
         row("K3a Cholesky diagonal block (potrf_block_inv; blocked route, "
-            "w=2048): off the main paths", csrc + "potrf.cu",
+            "f32 w=2048): no main path gives it float32; the float64 HPD "
+            "step's row is on the kernels line", csrc + "potrf.cu",
             "elementalx/kernels/potrf.py:263", 0, k3_main["blocked"][:4]),
         row("K3a Cholesky diagonal block, the first design (route steps, "
             "w=512): off the main paths", csrc + "potrf.cu",
@@ -2447,6 +2640,11 @@ def main() -> None:
         row("K3a Cholesky diagonal block (potrf_block_inv; cluster route, "
             "w=512)", csrc + "potrf.cu", "elementalx/kernels/potrf.py:263",
             k3a_paths["cluster"], k3_main["cluster"][:4]),
+        row("K3a Cholesky diagonal block (potrf_block_inv; blocked route, "
+            "f64 w=512: the float64 HPD step's panels, products on K1's "
+            "FMA core)", csrc + "potrf.cu",
+            "elementalx/kernels/potrf.py:263", k3a_paths["blocked"],
+            k3_main["blocked f64"][:4]),
         row("K3b fused Cholesky panel tail (potrf_panel_tail; cluster route,"
             " (16384, 512))", csrc + "potrf_tail.cu",
             "elementalx/kernels/potrf.py:289", k3b_paths["cluster"],
@@ -2473,8 +2671,9 @@ def main() -> None:
         for core, name in (
             ("tma", "K7 lower-triangle symv (symv_lower; TMA tiles, "
                     "symv_unit.cuh SymvTiles)"),
-            ("unit", "K7 lower-triangle symv (symv_lower; scalar unit for "
-                     "rows not 16-byte multiples apart)"))
+            ("async", "K7 lower-triangle symv (symv_lower; the same tiles "
+                      "filled by cp.async, for rows not 16-byte multiples "
+                      "apart)"))
     ] + [
         row(name, csrc + "ring_summa.cu",
             "elementalx/kernels/ring_summa.py:93", k8_launches[core],

@@ -1,6 +1,6 @@
-// K1: the port's local GEMM, C = A * B, on three cores chosen by the
+// K1: the port's local GEMM, C = A * B, on four cores chosen by the
 // wrapper (kernels/matmul.py:route) from dtype, shape and alignment alone;
-// products of at most 16 columns in float32 and float64 take a fourth,
+// products of at most 16 columns in float32 and float64 take a fifth,
 // the skinny route of gemm_skinny.cu.
 //
 // Replaces the TPU kernel elementalx/kernels/matmul.py:matmul_pallas
@@ -30,14 +30,22 @@
 //     one unit stride: 16-byte copies where its base and other stride
 //     allow, else 4-byte ones; 64 x 128 tiles where 128 x 128 ones would
 //     leave SMs idle.
-//   - float64, bfloat16 operands that cannot be read in 16-byte pieces
-//     and operands with no unit stride (elx_matmul): the FMA core of
+//   - float64 (elx_matmul_dmma): 67 TFLOP/s of FP64 on the tensor cores.
+//     The core of gemm_dmma.cuh: mma.sync m16n8k8 f64 on 128 x 128 tiles
+//     (64 x 128 where those would leave SMs idle), fed by cp.async
+//     through three stages of BK = 32 in 16-byte copies, or 8-byte ones
+//     for rows of an odd number of doubles or an odd base. Each operand
+//     needs one unit stride.
+//   - float64 operands with no unit stride, bfloat16 operands that cannot
+//     be read in 16-byte pieces and other operands with no unit stride
+//     (elx_matmul): the FMA core of
 //     gemm_tile.cuh, register blocking 8x8 per thread fed from two
 //     shared-memory stages through registers; it takes any strides and
 //     masks ragged edges.
 //
 // The tensor-core core needs each operand's base 16-byte aligned, one unit
 // stride and the other a multiple of 16 bytes.
+#include "gemm_dmma.cuh"
 #include "gemm_f32_pipe.cuh"
 #include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
@@ -155,4 +163,21 @@ extern "C" int elx_matmul_fma_async(int M, int N, int K, const void* A,
                      : elx::pipe::launch<false, true>(g, s, n);
   return b_n_major ? elx::pipe::launch<true, false>(g, s, n)
                    : elx::pipe::launch<true, true>(g, s, n);
+}
+
+// The float64 core on the FP64 tensor cores: float64 A, B and C, each
+// operand with one unit stride (a_m_major: sam, else sak; b_n_major: sbn,
+// else sbk). narrow = 0: both bases 16-byte aligned and the other strides
+// even (16-byte copies); narrow = 1: any base and stride (8-byte copies).
+// K = 0 writes zeros and reads nothing.
+extern "C" int elx_matmul_dmma(int M, int N, int K, const void* A,
+                               long long sam, long long sak, int a_m_major,
+                               const void* B, long long sbk, long long sbn,
+                               int b_n_major, void* C, long long scm,
+                               long long scn, int narrow, void* stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  const elx::GemmArgs g{M, N, K, A, sam, sak, 0, B, sbk, sbn, 0, C,
+                        scm, scn, 0, 1.0, 0.0, 0};
+  return elx::dmma::launch_any(g, static_cast<cudaStream_t>(stream),
+                               narrow != 0, a_m_major != 0, b_n_major != 0);
 }

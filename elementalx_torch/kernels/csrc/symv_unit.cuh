@@ -25,9 +25,22 @@
 // diagonal does not reach y. Out-of-range rows and columns arrive as TMA
 // zeros and v is 0 there.
 //
-// symv_unit, the first design (K7's core for a row stride TMA cannot
-// read): rows [rs, re) x columns [cb, cb + kSymvUW) with scalar loads 1
-// KB apart, 15% of HBM bandwidth on the H100.
+// SymvTiles<T, true> fills the same stages by cp.async instead (K7's core
+// for rows that are not 16-byte multiples apart, which a TMA box cannot
+// read): every thread copies its share of the tile, in 4-byte pieces, or
+// 8-byte ones where the rows are 8-byte multiples apart and the base is
+// 8-byte aligned, zero-filled past the triangle's edges (outside the
+// matrix, and above the diagonal of a diagonal tile), into the row-major
+// 64 x 64 layout the TMA box writes, and arrives on the stage's full
+// barrier through cp.async.mbarrier.arrive.noinc when its copies land
+// (the barrier counts the block's threads). The walk, its tile order and
+// its sums are the TMA ring's, so both give the same bits on the same
+// tiles.
+//
+// symv_unit, the first design (K7's core "unit", which no route takes
+// since the cp.async ring replaced it): rows [rs, re) x columns [cb, cb +
+// kSymvUW) with scalar loads 1 KB apart, 15% of HBM bandwidth on the
+// H100.
 #pragma once
 
 #include <cuda.h>
@@ -147,7 +160,7 @@ __device__ __forceinline__ void warp_row_sums(U (&acc)[kSymvGR], int lane) {
   scatter_step<1>(acc, lane);
 }
 
-template <typename T>
+template <typename T, bool kAsync = false>
 struct SymvTiles {
   static constexpr int kTileBytes = kSymvT * kSymvT * sizeof(T);
   static constexpr int kStages = kSymvRing / kTileBytes;  // 4 float, 2 double
@@ -159,7 +172,12 @@ struct SymvTiles {
       (2 * kSymvGroups * kSymvT + kSymvWarps * kSymvGR) *
           static_cast<int>(sizeof(T));
 
-  const CUtensorMap* map;
+  const CUtensorMap* map;  // the TMA ring's source
+  // kAsync: the ring's source, local row 0 and column 0 at src, rows lda
+  // elements apart; kW elements a copy (2: float pairs, 8-byte copies)
+  const T* src;
+  long long lda;
+  int kw;
   // Tile (I, J) holds local rows kSymvT I - d .. + kSymvT - 1 and local
   // columns kSymvT J - d .. (map row row0 + local row, map column col0 +
   // local column). d = col0 mod (16 / sizeof(T)) puts every box's first
@@ -174,11 +192,14 @@ struct SymvTiles {
   unsigned used;     // tiles this block has consumed (every thread agrees)
 
   // Carves smem; thread 0 initialises the barriers. The caller
-  // synchronises the block before the first walk.
+  // synchronises the block before the first walk (kAsync: before the
+  // first prefetch). kAsync reads src_ (lda_, kw_) instead of map_.
   __device__ __forceinline__ SymvTiles(uint8_t* smem, const CUtensorMap* map_,
-                                       int row0_, int col0_, int n_)
-      : map(map_), row0(row0_), col0(col0_), n(n_),
-        d(col0_ % static_cast<int>(16 / sizeof(T))), used(0) {
+                                       int row0_, int col0_, int n_,
+                                       const T* src_ = nullptr,
+                                       long long lda_ = 0, int kw_ = 1)
+      : map(map_), src(src_), lda(lda_), kw(kw_), row0(row0_), col0(col0_),
+        n(n_), d(col0_ % static_cast<int>(16 / sizeof(T))), used(0) {
     const long long nt = strips();
     ntiles = nt * (nt + 1) / 2;
     const uint32_t raw = tma::smem_addr(smem);
@@ -189,7 +210,8 @@ struct SymvTiles {
     scol = reinterpret_cast<T*>(p + kSymvRing + 8 * kStages);
     srow = scol + 2 * kSymvGroups * kSymvT;
     if (threadIdx.x == 0) {
-      for (int s = 0; s < kStages; ++s) tma::mbar_init(full_s + 8 * s, 1);
+      for (int s = 0; s < kStages; ++s)
+        tma::mbar_init(full_s + 8 * s, kAsync ? kSymvThreads : 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
   }
@@ -236,19 +258,65 @@ struct SymvTiles {
     return min(n, kSymvT * (I + 1) - d);
   }
 
-  // Thread 0: tile t into stage s.
+  // Tile t into stage s. Called by thread 0, which starts its TMA box, or
+  // (kAsync) by every thread, each copying its share (fill).
   __device__ __forceinline__ void issue(long long t, unsigned s) const {
     int I, J;
     tile_of(t, I, J);
-    tma::mbar_expect_tx(full_s + 8 * s, kTileBytes);
-    tma::tma_load(ring_s + s * kTileBytes, map, full_s + 8 * s,
-                  col0 - d + J * kSymvT, row0 - d + I * kSymvT);
+    if constexpr (kAsync && sizeof(T) == 4) {
+      if (kw == 2)
+        fill<2>(I, J, s);
+      else
+        fill<1>(I, J, s);
+    } else if constexpr (kAsync) {
+      fill<1>(I, J, s);
+    } else {
+      tma::mbar_expect_tx(full_s + 8 * s, kTileBytes);
+      tma::tma_load(ring_s + s * kTileBytes, map, full_s + 8 * s,
+                    col0 - d + J * kSymvT, row0 - d + I * kSymvT);
+    }
+  }
+
+  // This thread's share of tile (I, J) into stage s by cp.async, kW
+  // elements a copy (consecutive threads on consecutive columns: one
+  // column, every kRows-th row), zeros past the triangle's edges, then its
+  // arrival on the stage's barrier when the copies land. With kW = 2 a
+  // pair never straddles column 0 (d is even) and its second entry is in
+  // the triangle only if its first is.
+  template <int kW>
+  __device__ __forceinline__ void fill(int I, int J, unsigned s) const {
+    constexpr int kPerRow = kSymvT / kW;
+    constexpr int kRows = kSymvThreads / kPerRow;  // 4 or 8
+    constexpr int kBytes = kW * sizeof(T);
+    static_assert(kBytes == 4 || kBytes == 8, "4- or 8-byte copies");
+    const int rr = threadIdx.x / kPerRow, cc = threadIdx.x % kPerRow * kW;
+    const int c = J * kSymvT - d + cc;
+    int r = I * kSymvT - d + rr;
+    const T* p = src + static_cast<long long>(r) * lda + c;
+    uint32_t dst = ring_s + s * kTileBytes + (rr * kSymvT + cc) * sizeof(T);
+#pragma unroll 4
+    for (int i = 0; i < kSymvT / kRows; ++i) {
+      const int in = r >= 0 && r < n && c >= 0 ? min(max(r - c + 1, 0), kW)
+                                               : 0;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                       dst),
+                   "l"(in ? p : src), "n"(kBytes),
+                   "r"(in * static_cast<int>(sizeof(T)))
+                   : "memory");
+      r += kRows;
+      p += kRows * lda;
+      dst += kRows * kSymvT * sizeof(T);
+    }
+    asm volatile(
+        "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+            full_s + 8 * s)
+        : "memory");
   }
 
   // Start the first kStages loads of [lo, hi) (the next walk's range): a
   // caller may prefetch before other work to hide the first loads.
   __device__ __forceinline__ void prefetch(long long lo, long long hi) const {
-    if (threadIdx.x != 0) return;
+    if (!kAsync && threadIdx.x != 0) return;
     for (long long k = 0; k < kStages && lo + k < hi; ++k)
       issue(lo + k, (used + static_cast<unsigned>(k)) % kStages);
   }
@@ -370,7 +438,7 @@ struct SymvTiles {
       T* sc = scol + (used & 1u) * (kSymvGroups * kSymvT);
       sc[g * kSymvT + c] = colp;
       __syncthreads();  // stage s read by all; column partials written
-      if (tid == 0 && t + kStages < hi) issue(t + kStages, s);
+      if ((kAsync || tid == 0) && t + kStages < hi) issue(t + kStages, s);
       if (g == 0 && col_in)
         yp[cj] = old + ((sc[c] + sc[kSymvT + c]) +
                         (sc[2 * kSymvT + c] + sc[3 * kSymvT + c]));

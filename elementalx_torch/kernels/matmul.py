@@ -19,9 +19,13 @@ alignment alone:
   16-byte copies where the operands are read so and in 4-byte copies
   otherwise (rows of 777 floats, an odd base); its result equals the
   ``"fma"`` core's bit for bit;
-- ``"fma"``: everything else (float64 of more than ``SKINNY_N`` columns,
-  bfloat16 operands the TMA cannot read, operands with no unit stride)
-  goes to the tiled FMA core of ``csrc/gemm_tile.cuh``.
+- ``"dmma"``: float64 operands with one unit stride each go to the FP64
+  tensor cores, ``csrc/gemm_dmma.cuh`` (mma.sync m16n8k8 f64 fed by a
+  cp.async ring, 16-byte copies where the operands allow them and 8-byte
+  ones otherwise);
+- ``"fma"``: everything else (float64 operands with no unit stride,
+  bfloat16 operands the TMA cannot read, other operands with no unit
+  stride) goes to the tiled FMA core of ``csrc/gemm_tile.cuh``.
 
 The headers of ``csrc/matmul.cu`` and ``csrc/gemm_skinny.cu`` say what
 bounds each on the H100.
@@ -87,10 +91,15 @@ _SKINNY = Entry("elx_matmul_skinny",
 
 #: the cores and the C entry of each
 CORES = {"wgmma": "elx_matmul_wgmma", "fma_async": "elx_matmul_fma_async",
-         "fma": "elx_matmul", "skinny": "elx_matmul_skinny"}
+         "dmma": "elx_matmul_dmma", "fma": "elx_matmul",
+         "skinny": "elx_matmul_skinny"}
 
-#: the core for operands read in place in 16-byte pieces, by dtype
+#: the core for operands read in place in 16-byte pieces, by dtype (K8's
+#: too)
 FAST_CORE = {torch.bfloat16: "wgmma", torch.float32: "fma_async"}
+#: K1's cores for operands with a unit stride each, in any alignment, by
+#: dtype: the cp.async cores
+ASYNC_CORE = {torch.float32: "fma_async", torch.float64: "dmma"}
 
 #: the widest C the skinny route takes, and its types
 SKINNY_N = 16
@@ -158,22 +167,33 @@ def route(a: torch.Tensor, b: torch.Tensor) -> str:
     alignment alone: ``"skinny"`` for float32 and float64 with at most
     ``SKINNY_N`` columns; ``"wgmma"`` (tensor cores) for bfloat16 operands
     that can be read in place in 16-byte pieces; ``"fma_async"`` for
-    float32 operands with a unit stride each (any when K = 0, which reads
-    nothing); else ``"fma"``. No device is needed: the CPU tests check
-    it."""
+    float32 and ``"dmma"`` (FP64 tensor cores) for float64 operands with a
+    unit stride each (any when K = 0, which reads nothing); else
+    ``"fma"``. No device is needed: the CPU tests check it."""
     if (a.dtype in SKINNY_DTYPES and b.dtype == a.dtype
             and b.shape[1] <= SKINNY_N):
         return "skinny"
-    fast = FAST_CORE.get(a.dtype)
+    fast = ASYNC_CORE.get(a.dtype) or FAST_CORE.get(a.dtype)
     if fast is None or b.dtype != a.dtype:
         return "fma"
     if a.shape[1] == 0:
         return fast
-    if fast == "fma_async":
-        unit = unit_dim(a) is not None and unit_dim(b) is not None
-    else:
+    if fast == "wgmma":
         unit = tma_unit_dim(a) is not None and tma_unit_dim(b) is not None
+    else:
+        unit = unit_dim(a) is not None and unit_dim(b) is not None
     return fast if unit else "fma"
+
+
+def narrow_copies(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the cp.async cores (``"fma_async"``, ``"dmma"``) copy A
+    and B one element at a time (4- or 8-byte copies) instead of in
+    16-byte pieces: when K > 0 and an operand cannot be read in 16-byte
+    pieces (``tma_unit_dim`` is None: a base off 16 bytes, or rows not
+    16-byte multiples apart, such as rows of 777 floats or doubles). From
+    the layout alone: the CPU tests check it."""
+    return a.shape[1] > 0 and (tma_unit_dim(a) is None
+                               or tma_unit_dim(b) is None)
 
 
 def skinny_plan(a: torch.Tensor, sms: int) -> Tuple[int, int, int, int]:
@@ -244,12 +264,11 @@ def _launch(core: str, a: torch.Tensor, b: torch.Tensor,
                 rc = fn(DTYPE_CODE[out_dtype], M, N, K, *ops,
                         current_stream(a))
             else:
-                # 4-byte copies unless both operands are read in 16-byte
-                # pieces
-                narrow = int(K > 0 and (tma_unit_dim(a) is None
-                                        or tma_unit_dim(b) is None))
+                # element-sized copies unless both operands are read in
+                # 16-byte pieces
                 fn = kernel_function(CORES[core], _ASYNC_ARGTYPES)
-                rc = fn(M, N, K, *ops, narrow, current_stream(a))
+                rc = fn(M, N, K, *ops, int(narrow_copies(a, b)),
+                        current_stream(a))
     check_launch(rc, f"K1 ({core})")
     return c
 

@@ -3,16 +3,22 @@
 Counterpart of ``elementalx/kernels/symv.py`` (``symv_lower`` and
 ``symv_lower_trailing``, TPU kernel ``_symv_lower_tpu`` with body
 ``_symv_kernel``). The CUDA kernels are in ``csrc/symv.cu``, one
-cooperative launch over the lower triangle on one of two cores that
-``route`` picks from dtype and layout alone:
+cooperative launch over the lower triangle on one of the two cores
+that ``route`` picks from dtype and layout alone:
 
 - ``"tma"``: the H100 design (``SymvTiles`` of ``csrc/symv_unit.cuh``,
   which K5 runs too): 64 x 64 tiles through a TMA ring in shared memory,
   each used for both of its products. TMA reads A in place when its row
   stride is a multiple of 16 bytes, at any offset: a slice such as
   ``a[k0:, k0:]`` is read through a tensor map over the parent's storage;
-- ``"unit"``: the first design, the scalar symv unit, for any other row
-  stride.
+- ``"async"``: any other row stride: the same tiles, walk and sums,
+  the ring filled by cp.async (4-byte copies, or 8-byte ones where A's
+  base and rows allow them, ``copy_bytes``) instead of TMA boxes; on a
+  matrix whose base is 16-byte aligned it gives the ``"tma"`` core's bits
+  on a copy with 16-byte rows.
+
+The first design, the scalar symv unit (``"unit"``), is no route's any
+more; ``_launch("unit", ...)`` still runs it, to be timed in turns.
 
 The header of ``csrc/symv.cu`` says what bounds them on the H100 (the
 bytes of the lower triangle) and how they sum without float atomics.
@@ -43,9 +49,12 @@ from .common import raw_stream
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _UNIT = Entry("elx_symv_lower", (_I, _I, _P, _L, _P, _P, _P, _I, _P))
 _TMA = Entry("elx_symv_lower_tma", (_I, _I, _P, _I, _L, _P, _P, _P, _I, _P))
+_ASYNC = Entry("elx_symv_lower_async",
+               (_I, _I, _P, _I, _L, _I, _P, _P, _P, _I, _P))
 
 #: the cores and the C entry that sizes each one's grid
-CORES = {"tma": "elx_symv_tma_grid", "unit": "elx_symv_grid"}
+CORES = {"tma": "elx_symv_tma_grid", "async": "elx_symv_async_grid",
+         "unit": "elx_symv_grid"}
 
 
 def symv_lower_plain(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -79,11 +88,24 @@ def route(A: torch.Tensor) -> str:
     """The K7 core a CUDA call on A takes, by dtype and layout alone:
     ``"tma"`` when the row stride of the matrix the kernel reads (A in
     place, or its contiguous copy when A's columns are not unit-stride) is
-    a multiple of 16 bytes, else ``"unit"``. The base's alignment does not
-    matter: the tensor map starts at the 16-byte boundary at or before
-    A's first element. No device is needed: the CPU tests check it."""
+    a multiple of 16 bytes, else ``"async"``. The base's alignment does
+    not matter to ``"tma"``: the tensor map starts at the 16-byte boundary
+    at or before A's first element. No device is needed: the CPU tests
+    check it."""
     lda = A.stride(0) if _readable(A) else A.shape[0]
-    return "tma" if (lda * A.element_size()) % 16 == 0 else "unit"
+    return "tma" if (lda * A.element_size()) % 16 == 0 else "async"
+
+
+def copy_bytes(A: torch.Tensor) -> int:
+    """The bytes of each cp.async copy of the ``"async"`` core on A (read
+    in place): 8 where A's base is 8-byte aligned and its rows are 8-byte
+    multiples apart (float32 pairs; float64 always), else 4. From the
+    layout alone: the CPU tests check it."""
+    elem = A.element_size()
+    if elem == 8 or (A.data_ptr() % 8 == 0
+                     and (A.stride(0) * elem) % 8 == 0):
+        return 8
+    return 4
 
 
 #: ypart scratch per (device index, dtype, stream): every block of either
@@ -110,12 +132,16 @@ def _launch(core: str, A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         return y
     G = cooperative_grid(CORES[core], A)
     ws = _workspace(A, G, n, raw_stream(A))
+    elem = A.element_size()
+    ptr = A.data_ptr()
+    # the tile geometry's offset: A's columns after the 16-byte boundary
+    c0 = (ptr % 16) // elem
     if core == "tma":
-        elem = A.element_size()
-        ptr = A.data_ptr()
-        c0 = (ptr % 16) // elem
         launch(_TMA, A, DTYPE_CODE[A.dtype], n, ptr - c0 * elem, c0,
                A.stride(0), v.data_ptr(), y.data_ptr(), ws.data_ptr(), G)
+    elif core == "async":
+        launch(_ASYNC, A, DTYPE_CODE[A.dtype], n, ptr, c0, A.stride(0),
+               copy_bytes(A), v.data_ptr(), y.data_ptr(), ws.data_ptr(), G)
     else:
         launch(_UNIT, A, DTYPE_CODE[A.dtype], n, A.data_ptr(), A.stride(0),
                v.data_ptr(), y.data_ptr(), ws.data_ptr(), G)
@@ -144,7 +170,7 @@ def symv_lower(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def reset_launches() -> None:
-    """Zero K7's launch counts (both cores)."""
+    """Zero K7's launch counts (every core)."""
     symv_lower.launches = 0
     for core in CORES:
         setattr(symv_lower, f"launches_{core}", 0)

@@ -64,9 +64,10 @@ def in_turns(a, b, iters):
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-def loop_mix(sass: str, pattern: str):
+def loop_mix(sass: str, pattern: str, dump: str = ""):
     """(instructions, Counter of opcodes) of the longest backward-branch
-    loop of the first function whose name matches ``pattern``."""
+    loop of the first function whose name matches ``pattern`` (its text
+    written to the file ``dump`` when one is named)."""
     for body in re.split(r"\n\s+Function : ", sass):
         name = body.split("\n", 1)[0]
         if not re.search(pattern, name):
@@ -82,6 +83,9 @@ def loop_mix(sass: str, pattern: str):
                 best = max(best, loop, key=len)
         ops = Counter(re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0]
                       for t in best)
+        if dump:
+            with open(dump, "w") as f:
+                f.write("\n".join(best) + "\n")
         return len(best), ops
     return 0, Counter()
 

@@ -177,7 +177,7 @@ def _bf16(*shape):
     (lambda: (torch.zeros(777, 1000).mT, torch.zeros(1001, 777).mT),
      "fma_async"),
     (lambda: (torch.zeros(64, 128, dtype=torch.float64),
-              torch.zeros(128, 64, dtype=torch.float64)), "fma"),
+              torch.zeros(128, 64, dtype=torch.float64)), "dmma"),
     # the dist step's SUMMA_C k-panel: a column slice of an 8192-wide A
     # block times a (128 x 2) slice of B's rows (8 bytes apart)
     (lambda: (torch.empty(8192, 8192)[:, 128:256],
@@ -194,7 +194,22 @@ def _bf16(*shape):
     (lambda: (torch.zeros(64, 256)[:, ::2], torch.zeros(128, 64)), "fma"),
     (lambda: (torch.zeros(64, 128), torch.zeros(128, 128)[:, ::2]), "fma"),
     (lambda: (torch.zeros(1000, 777, dtype=torch.float64),
-              torch.zeros(777, 1001, dtype=torch.float64)), "fma"),
+              torch.zeros(777, 1001, dtype=torch.float64)), "dmma"),
+    (lambda: (torch.zeros(777, 1000, dtype=torch.float64).mT,
+              torch.zeros(1001, 777, dtype=torch.float64).mT), "dmma"),
+    # the float64 Cholesky's history product: hist @ row.mH
+    (lambda: (torch.zeros(1024, 1024, dtype=torch.float64)[512:, :384],
+              torch.zeros(1024, 1024, dtype=torch.float64)[512:768,
+                                                           :384].mH),
+     "dmma"),
+    (lambda: (torch.zeros(64, 0, dtype=torch.float64),
+              torch.zeros(0, 17, dtype=torch.float64)), "dmma"),
+    (lambda: (torch.zeros(64, 256, dtype=torch.float64)[:, ::2],
+              torch.zeros(128, 64, dtype=torch.float64)), "fma"),
+    (lambda: (torch.zeros(64, 128, dtype=torch.float64),
+              torch.zeros(128, 128, dtype=torch.float64)[:, ::2]), "fma"),
+    (lambda: (torch.zeros(64, 128, dtype=torch.float64),
+              torch.zeros(16, 128, dtype=torch.float64).mT), "skinny"),
 ], ids=["bf16-contiguous", "bf16-A.mT", "bf16-B.mH", "bf16-both-mT",
         "bf16-history-slices", "bf16-K0", "bf16-ragged-rows",
         "bf16-odd-stride", "bf16-offset-base", "bf16-B-offset",
@@ -202,20 +217,57 @@ def _bf16(*shape):
         "f32-ragged-mT", "f64", "f32-summa-c-owner-panel",
         "f32-summa-c-broadcast-panel", "f32-latrd-B.mT", "f64-N16",
         "f32-N16-offset", "f32-K0-N16", "f32-N17", "bf16-N16",
-        "f32-A-no-unit-stride", "f32-B-no-unit-stride", "f64-ragged"])
+        "f32-A-no-unit-stride", "f32-B-no-unit-stride", "f64-ragged",
+        "f64-ragged-mT", "f64-history-B.mH", "f64-K0",
+        "f64-A-no-unit-stride", "f64-B-no-unit-stride", "f64-N16-B.mT"])
 def test_matmul_route(operands, core):
     """K1's core follows from dtype, shape and alignment alone: float32
     and float64 products of at most 16 columns take the skinny route at
     any strides; bfloat16 operands that can be read in place in 16-byte
     pieces (a 16-byte aligned base, one unit stride, the other a multiple
-    of 16 bytes; any when K = 0) take the tensor cores, and float32
+    of 16 bytes; any when K = 0) take the tensor cores, float32
     operands with a unit stride each the FP32 pipeline (4-byte copies
-    where 16-byte ones do not fit); the rest, and wider float64, the FMA
-    core."""
+    where 16-byte ones do not fit) and float64 ones the FP64 tensor cores
+    (8-byte copies where 16-byte ones do not fit); the rest, float64 with
+    no unit stride included, the FMA core."""
     from elementalx_torch.kernels.matmul import route
 
     a, b = operands()
     assert route(a, b) == core
+
+
+@pytest.mark.parametrize("operands,narrow", [
+    (lambda: (torch.zeros(2048, 2048, dtype=torch.float64),
+              torch.zeros(2048, 2048, dtype=torch.float64)), False),
+    (lambda: (torch.zeros(1024, 1024, dtype=torch.float64)[512:, :384],
+              torch.zeros(1024, 1024, dtype=torch.float64)[512:768,
+                                                           :384].mH),
+     False),
+    (lambda: (torch.zeros(1000, 777, dtype=torch.float64),
+              torch.zeros(777, 1001, dtype=torch.float64)), True),
+    (lambda: (torch.zeros(777, 1000, dtype=torch.float64).mT,
+              torch.zeros(1001, 777, dtype=torch.float64).mT), True),
+    (lambda: (torch.zeros(64, 130, dtype=torch.float64)[:, 1:129],
+              torch.zeros(128, 64, dtype=torch.float64)), True),
+    (lambda: (torch.zeros(64, 128, dtype=torch.float64),
+              torch.zeros(128, 66, dtype=torch.float64)[:, 1:65]), True),
+    (lambda: (torch.zeros(64, 0, dtype=torch.float64),
+              torch.zeros(0, 17, dtype=torch.float64)), False),
+    (lambda: (torch.zeros(1000, 777), torch.zeros(777, 1001)), True),
+    (lambda: (torch.zeros(1000, 780), torch.zeros(780, 1004)), False),
+], ids=["f64-square", "f64-history-B.mH", "f64-ragged-rows",
+        "f64-ragged-mT", "f64-A-odd-base", "f64-B-odd-base", "f64-K0",
+        "f32-ragged-rows", "f32-16-byte-rows"])
+def test_matmul_narrow_copies(operands, narrow):
+    """The cp.async cores copy in 16-byte pieces when both operands can
+    be read so (a 16-byte aligned base, the other stride a multiple of 16
+    bytes) and one element at a time (4 or 8 bytes) otherwise; the flag
+    follows from the layout alone, and K = 0 copies nothing."""
+    from elementalx_torch.kernels.matmul import narrow_copies, route
+
+    a, b = operands()
+    assert route(a, b) in ("dmma", "fma_async")
+    assert narrow_copies(a, b) is narrow
 
 
 @pytest.mark.parametrize("operand,sms,plan", [
@@ -1037,14 +1089,14 @@ def _f32(rows, cols, dtype=torch.float32):
     (lambda: _f32(1024, 1024)[1:, 1:], "tma"),
     (lambda: _f32(16384, 16384)[5000:, 5000:], "tma"),
     (lambda: _f32(1000, 1004)[:, :1000], "tma"),
-    (lambda: _f32(1000, 1001)[:, :1000], "unit"),
-    (lambda: _f32(1000, 1002)[:, :1000], "unit"),
-    (lambda: _f32(1001, 1001), "unit"),
-    (lambda: _f32(1001, 1001)[1:, 1:], "unit"),
+    (lambda: _f32(1000, 1001)[:, :1000], "async"),
+    (lambda: _f32(1000, 1002)[:, :1000], "async"),
+    (lambda: _f32(1001, 1001), "async"),
+    (lambda: _f32(1001, 1001)[1:, 1:], "async"),
     (lambda: _f32(1000, 1000).mT, "tma"),
-    (lambda: _f32(1001, 1001).mT, "unit"),
+    (lambda: _f32(1001, 1001).mT, "async"),
     (lambda: _f32(1000, 1002, torch.float64)[:, :1000], "tma"),
-    (lambda: _f32(1001, 1001, torch.float64), "unit"),
+    (lambda: _f32(1001, 1001, torch.float64), "async"),
     (lambda: _f32(1000, 1000, torch.float64)[37:, 37:], "tma"),
 ], ids=["f32-contiguous", "f32-k0-37", "f32-k0-1", "f32-k0-5000",
         "f32-stride-1004", "f32-stride-1001", "f32-stride-1002",
@@ -1056,10 +1108,33 @@ def test_symv_route(matrix, core):
     place, or of its contiguous copy when A's columns are not unit-stride)
     that is a multiple of 16 bytes takes the TMA tiles at any offset
     (the tensor map starts at the 16-byte boundary before A), any other
-    the scalar unit."""
+    the same tiles filled by cp.async."""
     from elementalx_torch.kernels.symv import route
 
     assert route(matrix()) == core
+
+
+@pytest.mark.parametrize("matrix,nbytes", [
+    (lambda: _f32(1001, 1001), 4),
+    (lambda: _f32(1000, 1002)[:, :1000], 8),
+    (lambda: _f32(1000, 1002)[1:, 1:], 4),
+    (lambda: _f32(1000, 1002)[2:, 2:], 8),
+    (lambda: _f32(1001, 1001)[1:, 1:], 4),
+    (lambda: _f32(16383, 16383), 4),
+    (lambda: _f32(1001, 1001, torch.float64), 8),
+    (lambda: _f32(1001, 1001, torch.float64)[1:, 1:], 8),
+], ids=["f32-odd-rows", "f32-8-byte-rows", "f32-8-byte-rows-odd-base",
+        "f32-8-byte-rows-k0-2", "f32-odd-rows-k0-1", "f32-16383",
+        "f64-odd-rows", "f64-odd-rows-k0-1"])
+def test_symv_async_copy_bytes(matrix, nbytes):
+    """The "async" core's cp.async copies: 8 bytes where A's base is
+    8-byte aligned and its rows 8-byte multiples apart (float64 always),
+    else 4; from the layout alone."""
+    from elementalx_torch.kernels.symv import copy_bytes, route
+
+    A = matrix()
+    assert route(A) == "async"
+    assert copy_bytes(A) == nbytes
 
 
 def test_symv_counters_by_core_and_cpu_counts_nothing():
@@ -1375,6 +1450,71 @@ def test_matmul_fma_async_equals_fma_core(cuda, shape, ta, tb):
     torch.cuda.synchronize()
     assert matmul.launches_fma_async == before + 1
     assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2048, 512, 1024), (1000, 780, 1004),
+                                   (1000, 777, 1001), (257, 129, 65),
+                                   (300, 36, 200), (64, 0, 24),
+                                   (3000, 129, 2001)],
+                         ids=["tiles", "ragged", "rows-of-777",
+                              "odd-small", "K36", "K0", "odd-128-tiles"])
+@pytest.mark.parametrize("ta", [False, True], ids=["A", "A.mT"])
+@pytest.mark.parametrize("tb", [False, True], ids=["B", "B.mT"])
+def test_matmul_dmma_vs_plain(cuda, shape, ta, tb):
+    """float64 on the FP64 tensor cores against matmul_plain: within
+    1e-12 of max|C| (the tensor cores' sums over k in another order than
+    cuBLAS's), ragged M, N and K, every majorness, 16-byte copies where
+    the rows allow them and 8-byte ones for rows of an odd number of
+    doubles, 64 x 128 tiles where 128 x 128 ones give fewer blocks than
+    SMs; two runs give the same bits; K = 0 writes zeros."""
+    from elementalx_torch.kernels.matmul import route
+
+    M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(24)
+    a = _operand(g, cuda, M, K, ta, torch.float64)
+    b = _operand(g, cuda, K, N, tb, torch.float64)
+    assert route(a, b) == "dmma"
+    before = (matmul.launches, matmul.launches_dmma, matmul.launches_fma)
+    out = matmul(a, b)
+    again = matmul(a, b)
+    ref = matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert (matmul.launches, matmul.launches_dmma,
+            matmul.launches_fma) == (before[0] + 2, before[1] + 2, before[2])
+    assert out.shape == (M, N) and out.dtype == torch.float64
+    assert torch.equal(out, again)
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-12 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["history-B.mH", "odd-base-A",
+                                  "odd-base-B"])
+def test_matmul_dmma_views(cuda, view):
+    """The float64 Cholesky's history product hist @ row.mH (rows of an
+    n x n buffer, read in place), operands whose base is off 16 bytes
+    (8-byte copies): within 1e-12 of max|C|, the same bits twice, one
+    launch each on the FP64 tensor cores."""
+    from elementalx_torch.kernels.matmul import narrow_copies, route
+
+    g = torch.Generator(device=cuda).manual_seed(25)
+    buf = torch.randn((2048, 2048), generator=g, device=cuda,
+                      dtype=torch.float64)
+    a, b = buf[1024:, :768], buf[1024:1536, :768].mH
+    if view == "odd-base-A":
+        a, b = buf[:900, 1:701], buf[1000:1700, :500]
+    elif view == "odd-base-B":
+        a, b = buf[:900, :700], buf[1000:1700, 3:504]
+    assert route(a, b) == "dmma"
+    assert narrow_copies(a, b) == view.startswith("odd")
+    before = matmul.launches_dmma
+    out, again = matmul(a, b), matmul(a, b)
+    assert matmul.launches_dmma == before + 2
+    ref = matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert (out - ref).abs().max().item() <= 1e-12 * ref.abs().max().item()
 
 
 @pytest.mark.cuda
@@ -2132,7 +2272,7 @@ def test_symv_kernel_vs_plain(cuda, n, dt):
 def test_symv_cores_vs_plain(cuda, n, k0, pad, dt):
     """K7 on the trailing block a[k0:, k0:] of an n x (n + pad) buffer with
     NaN above the diagonal, on the core route() picks (TMA tiles for a row
-    stride of 16-byte multiples, the scalar unit otherwise), against the
+    stride of 16-byte multiples, the cp.async ring otherwise), against the
     plain version on the clean matrix: 1e-5 (float32, sums of n terms in
     another order) or 1e-12 (float64) of max|y|; NaN never reaches y; a
     second run gives the same bits; the launch is counted on its core."""
@@ -2148,7 +2288,7 @@ def test_symv_cores_vs_plain(cuda, n, k0, pad, dt):
     del iu
     core = route(A[k0:, k0:])
     assert core == ("tma" if (n + pad) * buf.element_size() % 16 == 0
-                    else "unit")
+                    else "async")
     before = getattr(symv_lower, f"launches_{core}")
     y = symv_lower_trailing(A, v, k0)
     y2 = symv_lower_trailing(A, v, k0)
@@ -2158,6 +2298,60 @@ def test_symv_cores_vs_plain(cuda, n, k0, pad, dt):
     assert bool(torch.isfinite(y).all())
     assert (y - ref).abs().max().item() <= rtol * ref.abs().max().item()
     assert torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,pad,dt", [
+    (1, 1, torch.float32), (31, 0, torch.float32), (1000, 1, torch.float32),
+    (1025, 2, torch.float32), (16383, 0, torch.float32),
+    (37, 0, torch.float64), (1001, 0, torch.float64),
+])
+def test_symv_async_equals_tma_on_aligned_copy(cuda, n, pad, dt):
+    """At k0 = 0, on a matrix whose base is 16-byte aligned and whose rows
+    are not 16-byte multiples apart, the cp.async core takes the TMA
+    core's tiles, walk and sums: y equals, bit for bit, the TMA core's y
+    on a copy of A whose rows are 16-byte multiples apart (NaN above the
+    diagonal in both, and in the copy's padding); NaN never reaches y."""
+    from elementalx_torch.kernels.symv import route
+
+    g = torch.Generator(device=cuda).manual_seed(42)
+    A = torch.randn((n, n + pad), generator=g, device=cuda).to(dt)[:, :n]
+    v = torch.randn((n,), generator=g, device=cuda).to(dt)
+    iu = torch.triu_indices(n, n, 1, device=cuda)
+    A[iu[0], iu[1]] = float("nan")
+    per = 16 // A.element_size()
+    copy = torch.full((n, -(-n // per) * per), float("nan"), device=cuda,
+                      dtype=dt)[:, :n]
+    copy.copy_(A)
+    assert (route(A), route(copy)) == ("async", "tma")
+    before = (symv_lower.launches_async, symv_lower.launches_tma)
+    y = symv_lower(A, v)
+    y_tma = symv_lower(copy, v)
+    torch.cuda.synchronize()
+    assert (symv_lower.launches_async, symv_lower.launches_tma) == (
+        before[0] + 1, before[1] + 1)
+    assert bool(torch.isfinite(y).all())
+    assert torch.equal(y, y_tma)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_symv_unit_core_still_runs(cuda, dt):
+    """The first design ("unit"), which no route takes any more, still
+    runs through _launch: against the plain version within 1e-5 (float32)
+    or 1e-12 (float64) of max|y|, NaN above the diagonal kept out of y."""
+    from elementalx_torch.kernels.symv import _launch
+
+    g = torch.Generator(device=cuda).manual_seed(43)
+    A = torch.randn((1001, 1001), generator=g, device=cuda).to(dt)
+    v = torch.randn((1001,), generator=g, device=cuda).to(dt)
+    ref = symv_lower_plain(A, v)
+    iu = torch.triu_indices(1001, 1001, 1, device=cuda)
+    A[iu[0], iu[1]] = float("nan")
+    y = _launch("unit", A, v)
+    torch.cuda.synchronize()
+    rtol = 1e-5 if dt == torch.float32 else 1e-12
+    assert (y - ref).abs().max().item() <= rtol * ref.abs().max().item()
 
 
 @pytest.mark.cuda
