@@ -39,6 +39,7 @@ from typing import List, Optional
 
 import torch
 
+from .. import trace
 from ..core import collectives
 from ..core.dmatrix import DistMatrix, block_ranges, check_same_grid
 from ..core.environment import Blocksize
@@ -65,6 +66,7 @@ from ..kernels.matmul import matmul
 from .level1 import Axpby, Scale, _transposed_view
 
 
+@trace.traced("blas.local_gemm")
 def local_gemm(a: torch.Tensor, b: torch.Tensor,
                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Local-block matmul (the blas::Gemm/cublas::Gemm analogue,

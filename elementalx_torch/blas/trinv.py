@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
+
 _BASE = 16
 
 
@@ -45,6 +47,7 @@ def _inv_upper_unblocked(U: torch.Tensor) -> torch.Tensor:
     return X
 
 
+@trace.traced("blas.trinv")
 def tri_inv_upper(U: torch.Tensor) -> torch.Tensor:
     """Inverse of (a batch of) upper-triangular matrices via batched
     recursive 2x2 block partitioning. Entries below the diagonal are

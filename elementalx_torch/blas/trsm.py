@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from .. import trace
 from ..core.dmatrix import DistMatrix, check_same_grid
 from ..core.environment import Blocksize
 from ..core.types import (
@@ -48,6 +49,7 @@ def _pick_nb(M: int, want: int) -> int:
     return nb
 
 
+@trace.traced("blas.trsm.prep")
 def _prep_triangle(T: torch.Tensor, m: int, lower: bool,
                    unit: bool) -> torch.Tensor:
     """Mask to the triangle, force unit diagonal if requested, and set the
@@ -66,6 +68,7 @@ def _prep_triangle(T: torch.Tensor, m: int, lower: bool,
     return torch.where(diag & (i >= m), one, T)
 
 
+@trace.traced("blas.trsm.diag_inv")
 def _batched_diag_inv(T: torch.Tensor, nb: int, nblk: int,
                       lower: bool) -> torch.Tensor:
     """Inverses of the nb x nb diagonal blocks, as one (nblk, nb, nb)
@@ -143,6 +146,13 @@ def Trsm(side: LeftOrRight, uplo: UpperOrLower, orientation: Orientation,
     """Solve op(A) X = alpha B (LEFT) or X op(A) = alpha B (RIGHT)
     (reference: Trsm.cpp driver). Returns X as [MC,MR]."""
     check_same_grid(A, B)
+    with trace.span("blas.Trsm", A.device):
+        return _trsm(side, uplo, orientation, diag, alpha, A, B, blocksize)
+
+
+def _trsm(side: LeftOrRight, uplo: UpperOrLower, orientation: Orientation,
+          diag: UnitOrNonUnit, alpha, A: DistMatrix, B: DistMatrix,
+          blocksize: Optional[int]) -> DistMatrix:
     Ad = A.redistribute(MC, MR).data
     Bm = B.redistribute(MC, MR)
     nb = blocksize or Blocksize()

@@ -33,6 +33,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from .grid import Grid
 from .types import Dist, DistWrap, ELEMENT, MC, MR
 
@@ -205,6 +206,7 @@ class DistMatrix:
 
     # ---- construction ----
     @staticmethod
+    @trace.traced("core.from_global")
     def from_global(array, col_dist: Dist = MC, row_dist: Dist = MR,
                     grid: Optional[Grid] = None,
                     wrap: DistWrap = ELEMENT) -> "DistMatrix":
@@ -333,6 +335,7 @@ class DistMatrix:
                 f"DistMatrix padding invariant violated: |pad| sum = {bad}")
 
     # ---- materialisation ----
+    @trace.traced("core.replicated")
     def replicated(self) -> torch.Tensor:
         """The padded data as every process sees it ([*,*]): on a 1 x 1
         grid the data itself; on a larger one an explicit AllGather, and

@@ -40,6 +40,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .. import trace
 from .common import DTYPE_CODE, Entry, launch, on_cuda
 
 _INT32_MAX = 2 ** 31 - 1
@@ -198,7 +199,7 @@ def axpby(alpha, x: torch.Tensor, beta, y: torch.Tensor) -> torch.Tensor:
         launch(_EW, y, _AXPBY, DTYPE_CODE[y.dtype], m, n, 0, 0, ap, av,
                x.data_ptr(), sx0, sx1, bp, bv, y.data_ptr(), sy0, sy1,
                out.data_ptr())
-        axpby.launches += 1
+        trace.count(axpby)
     return out
 
 
@@ -215,7 +216,7 @@ def scale(alpha, x: torch.Tensor) -> torch.Tensor:
         sx0, sx1 = x.stride()
         launch(_EW, x, _SCALE, DTYPE_CODE[x.dtype], m, n, 0, 0, ap, av,
                x.data_ptr(), sx0, sx1, 0, 0.0, 0, 0, 0, out.data_ptr())
-        scale.launches += 1
+        trace.count(scale)
     return out
 
 
@@ -233,7 +234,7 @@ def hadamard(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         launch(_EW, x, _HADAMARD, DTYPE_CODE[x.dtype], m, n, 0, 0, 0, 0.0,
                x.data_ptr(), sx0, sx1, 0, 0.0, y.data_ptr(), sy0, sy1,
                out.data_ptr())
-        hadamard.launches += 1
+        trace.count(hadamard)
     return out
 
 
@@ -256,7 +257,7 @@ def fill(shape: Sequence[int], alpha, dtype: torch.dtype, device=None,
         launch(_EW, out, _FILL, DTYPE_CODE[dtype], M, N, max(min(m, M), 0),
                max(min(n, N), 0), ap, av, 0, 0, 0, 0, 0.0, 0, 0, 0,
                out.data_ptr())
-        fill.launches += 1
+        trace.count(fill)
     return out
 
 
@@ -274,12 +275,12 @@ def transpose(x: torch.Tensor, conjugate: bool = False) -> torch.Tensor:
         sx0, sx1 = x.stride()
         launch(_EW, x, _TRANSPOSE, DTYPE_CODE[x.dtype], m, n, 0, 0, 0, 0.0,
                x.data_ptr(), sx0, sx1, 0, 0.0, 0, 0, 0, out.data_ptr())
-        transpose.launches += 1
+        trace.count(transpose)
     return out
 
 
-axpby.launches = 0
-scale.launches = 0
-hadamard.launches = 0
-fill.launches = 0
-transpose.launches = 0
+trace.reset_counts(axpby)
+trace.reset_counts(scale)
+trace.reset_counts(hadamard)
+trace.reset_counts(fill)
+trace.reset_counts(transpose)

@@ -36,6 +36,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from .common import (
     DTYPE_CODE,
     check_launch,
@@ -158,9 +159,7 @@ def _launch(rt: str, a: torch.Tensor, csize: int = 0
                 out.data_ptr(), piv.data_ptr(), used.data_ptr(),
                 mbuf.data_ptr(), ubuf.data_ptr(), *ptrs, current_stream(a))
     check_launch(rc, "elx_getrf_panel")
-    setattr(getrf_panel, f"launches_{rt}",
-            getattr(getrf_panel, f"launches_{rt}") + 1)
-    getrf_panel.launches += 1
+    trace.count(getrf_panel, rt)
     return out, piv.long()
 
 
@@ -176,9 +175,7 @@ def getrf_panel(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def reset_launches() -> None:
     """Zero K4's launch counts (every route and the sum)."""
-    getrf_panel.launches = 0
-    for rt in ROUTES:
-        setattr(getrf_panel, f"launches_{rt}", 0)
+    trace.reset_counts(getrf_panel, ROUTES)
 
 
 reset_launches()

@@ -33,6 +33,7 @@ from typing import Tuple
 
 import torch
 
+from .. import trace
 from .common import (
     DTYPE_CODE,
     cdiv,
@@ -148,8 +149,8 @@ def latrd_panel(a: torch.Tensor, k0: int, w: int, nb: int = MAX_NB
         return latrd_panel_plain(a, k0, w, nb)
     _check(a, k0, w, nb)
     out = _launch(a, k0, w, nb)
-    latrd_panel.launches += 1
+    trace.count(latrd_panel)
     return out
 
 
-latrd_panel.launches = 0
+trace.reset_counts(latrd_panel)

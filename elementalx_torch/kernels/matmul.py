@@ -50,6 +50,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import trace
 from .common import (
     DTYPE_CODE,
     Entry,
@@ -286,17 +287,13 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     core = route(a, b)
     c = _launch(core, a, b, out_dtype)
     if c.numel():  # an empty C launches nothing
-        matmul.launches += 1
-        name = f"launches_{core}"
-        setattr(matmul, name, getattr(matmul, name) + 1)
+        trace.count(matmul, core)
     return c
 
 
 def reset_launches() -> None:
     """Zero K1's launch counts (all cores)."""
-    matmul.launches = 0
-    for core in CORES:
-        setattr(matmul, f"launches_{core}", 0)
+    trace.reset_counts(matmul, CORES)
 
 
 reset_launches()

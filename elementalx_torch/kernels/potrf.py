@@ -53,6 +53,7 @@ from typing import Tuple
 
 import torch
 
+from .. import trace
 from .common import DTYPE_CODE, Entry, cdiv, launch, on_cuda, raw_stream
 
 #: width of one factorization step in csrc/potrf.cu
@@ -151,11 +152,6 @@ def _check(sym: torch.Tensor) -> None:
         raise TypeError(f"potrf_block_inv: unsupported dtype {sym.dtype}")
 
 
-def _count(fn, rt: str) -> None:
-    setattr(fn, f"launches_{rt}", getattr(fn, f"launches_{rt}") + 1)
-    fn.launches += 1
-
-
 def _launch(rt: str, sym: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """One K3a call on route ``rt`` (a CUDA block that ``_check`` passes),
     counted on that route. ``potrf_block_inv`` calls it with ``route``'s
@@ -174,7 +170,7 @@ def _launch(rt: str, sym: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     launch(_BLOCK_INV, sym, _ROUTE_CODE[rt], DTYPE_CODE[sym.dtype], w,
            sym.data_ptr(), sym.stride(0), l11.data_ptr(), inv_lh.data_ptr(),
            ws.data_ptr(), flags.data_ptr())
-    _count(potrf_block_inv, rt)
+    trace.count(potrf_block_inv, rt)
     return l11, inv_lh
 
 
@@ -275,7 +271,7 @@ def potrf_panel_tail(sym_a11: torch.Tensor, pan: torch.Tensor,
     _check_tail(sym_a11, pan, 0, low_apply, "potrf_panel_tail")
     rt = route(sym_a11.shape[0], sym_a11.dtype)
     out = _tail_launch(rt, sym_a11, pan, 0, low_apply)
-    _count(potrf_panel_tail, rt)
+    trace.count(potrf_panel_tail, rt)
     return out
 
 
@@ -292,7 +288,7 @@ def potrf_panel_tail_full(sym_a11: torch.Tensor, pan_full: torch.Tensor,
     _check_tail(sym_a11, pan_full, r0, low_apply, "potrf_panel_tail_full")
     rt = route(sym_a11.shape[0], sym_a11.dtype)
     out = _tail_launch(rt, sym_a11, pan_full, r0, low_apply)
-    _count(potrf_panel_tail_full, rt)
+    trace.count(potrf_panel_tail_full, rt)
     return out
 
 
@@ -302,9 +298,7 @@ def reset_launches() -> None:
     for fn, routes in ((potrf_block_inv, ROUTES),
                        (potrf_panel_tail, TAIL_ROUTES),
                        (potrf_panel_tail_full, TAIL_ROUTES)):
-        fn.launches = 0
-        for rt in routes:
-            setattr(fn, f"launches_{rt}", 0)
+        trace.reset_counts(fn, routes)
 
 
 reset_launches()

@@ -29,6 +29,7 @@ from typing import List, Sequence
 
 import torch
 
+from .. import trace
 from ..core.dmatrix import DistMatrix
 from ..core.redistribute import Copy
 from ..core.types import MC, MR, STAR, VC
@@ -148,9 +149,7 @@ def ring_summa_kernel(a_blocks: Sequence[torch.Tensor],
     core = route(a_blocks, b_blocks)
     c_blocks = _launch(core, a_blocks, b_blocks)
     if c_blocks[0].numel():  # empty C blocks launch nothing
-        ring_summa_kernel.launches += 1
-        name = f"launches_{core}"
-        setattr(ring_summa_kernel, name, getattr(ring_summa_kernel, name) + 1)
+        trace.count(ring_summa_kernel, core)
     return c_blocks
 
 
@@ -185,9 +184,7 @@ def _launch(core: str, a_blocks: Sequence[torch.Tensor],
 
 def reset_launches() -> None:
     """Zero K8's launch counts (all cores)."""
-    ring_summa_kernel.launches = 0
-    for core in CORES:
-        setattr(ring_summa_kernel, f"launches_{core}", 0)
+    trace.reset_counts(ring_summa_kernel, CORES)
 
 
 reset_launches()

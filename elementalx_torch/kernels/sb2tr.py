@@ -35,6 +35,7 @@ from typing import Tuple
 
 import torch
 
+from .. import trace
 from .common import (
     DTYPE_CODE,
     check_launch,
@@ -153,8 +154,7 @@ def _launch(rt: str, a_band: torch.Tensor, b: int, csize: int = 0
                 smax, work.data_ptr(), vout.data_ptr(), flags.data_ptr(),
                 current_stream(work))
     check_launch(rc, "elx_sb2tr")
-    setattr(sb2tr, f"launches_{rt}", getattr(sb2tr, f"launches_{rt}") + 1)
-    sb2tr.launches += 1
+    trace.count(sb2tr, rt)
     return vout, torch.diagonal(work).clone(), torch.diagonal(work, -1).clone()
 
 
@@ -171,9 +171,7 @@ def sb2tr(a_band: torch.Tensor, b: int
 
 def reset_launches() -> None:
     """Zero K6's launch counts (every route and the sum)."""
-    sb2tr.launches = 0
-    for rt in ROUTES:
-        setattr(sb2tr, f"launches_{rt}", 0)
+    trace.reset_counts(sb2tr, ROUTES)
 
 
 reset_launches()

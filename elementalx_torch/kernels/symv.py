@@ -43,6 +43,7 @@ import ctypes
 
 import torch
 
+from .. import trace
 from .common import DTYPE_CODE, Entry, cooperative_grid, launch, on_cuda
 from .common import raw_stream
 
@@ -163,17 +164,13 @@ def symv_lower(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     core = route(A)
     y = _launch(core, A, v)
     if A.shape[0]:
-        symv_lower.launches += 1
-        name = f"launches_{core}"
-        setattr(symv_lower, name, getattr(symv_lower, name) + 1)
+        trace.count(symv_lower, core)
     return y
 
 
 def reset_launches() -> None:
     """Zero K7's launch counts (every core)."""
-    symv_lower.launches = 0
-    for core in CORES:
-        setattr(symv_lower, f"launches_{core}", 0)
+    trace.reset_counts(symv_lower, CORES)
 
 
 reset_launches()

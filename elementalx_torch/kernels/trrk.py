@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from .. import trace
 from .common import (
     DTYPE_CODE,
     check_launch,
@@ -99,8 +100,8 @@ def masked_rank_k(lower: bool, alpha, a: torch.Tensor, b: torch.Tensor,
                 out.data_ptr(), out.stride(0), out.stride(1),
                 float(alpha), float(beta), current_stream(a))
     check_launch(rc, "elx_masked_rank_k")
-    masked_rank_k.launches += 1
+    trace.count(masked_rank_k)
     return out
 
 
-masked_rank_k.launches = 0
+trace.reset_counts(masked_rank_k)

@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from .. import trace
 from ..core.dmatrix import DistMatrix
 from ..core.environment import Blocksize, NonHPDMatrixException
 from ..core.types import (
@@ -74,28 +75,30 @@ def _chol_lower_left(a: torch.Tensor, nb: int,
                  and os.environ.get("ELX_PALLAS_POTRF") == "1")
     Lbuf = torch.zeros((M, M), dtype=sdt, device=a.device)
     for k0 in range(0, M, nb):
-        w = min(nb, M - k0)
-        pan = a[k0:, k0:k0 + w].to(cdt)
-        if k0 > 0:
-            # The history product, split as the JAX driver splits it:
-            # the old columns [0, k0 - nb), then the previous block's
-            # rank-nb term.
-            j0 = k0 - nb
-            if j0 > 0:
-                hist = Lbuf[k0:, :j0]
-                row = Lbuf[k0:k0 + w, :j0]
-                pan = pan - local_gemm(hist, row.mH, out_dtype=cdt)
-            prev = Lbuf[k0:, j0:k0]
-            pan = pan - local_gemm(prev, prev[:w].mH, out_dtype=cdt)
-        a11 = pan[:w]
-        sym = torch.tril(a11) + torch.tril(a11, -1).mH
-        if fuse_tail:
-            Lbuf[k0:, k0:k0 + w] = potrf_panel_tail(sym, pan, low_apply=low)
-            continue
-        l11, inv_lh = potrf_block_inv(sym)
-        Lbuf[k0:k0 + w, k0:k0 + w] = l11
-        if k0 + w < M:
-            Lbuf[k0 + w:, k0:k0 + w] = local_gemm(pan[w:], inv_lh)
+        with trace.span("lapack.cholesky.panel"):
+            w = min(nb, M - k0)
+            pan = a[k0:, k0:k0 + w].to(cdt)
+            if k0 > 0:
+                # The history product, split as the JAX driver splits it:
+                # the old columns [0, k0 - nb), then the previous block's
+                # rank-nb term.
+                j0 = k0 - nb
+                if j0 > 0:
+                    hist = Lbuf[k0:, :j0]
+                    row = Lbuf[k0:k0 + w, :j0]
+                    pan = pan - local_gemm(hist, row.mH, out_dtype=cdt)
+                prev = Lbuf[k0:, j0:k0]
+                pan = pan - local_gemm(prev, prev[:w].mH, out_dtype=cdt)
+            a11 = pan[:w]
+            sym = torch.tril(a11) + torch.tril(a11, -1).mH
+            if fuse_tail:
+                Lbuf[k0:, k0:k0 + w] = potrf_panel_tail(sym, pan,
+                                                        low_apply=low)
+                continue
+            l11, inv_lh = potrf_block_inv(sym)
+            Lbuf[k0:k0 + w, k0:k0 + w] = l11
+            if k0 + w < M:
+                Lbuf[k0 + w:, k0:k0 + w] = local_gemm(pan[w:], inv_lh)
     return Lbuf
 
 
@@ -132,6 +135,12 @@ def Cholesky(uplo: UpperOrLower, A: DistMatrix,
     failed panel with NaN, and the factor is checked once at the end."""
     if A.m != A.n:
         raise ValueError("Cholesky requires a square matrix")
+    with trace.span("lapack.Cholesky", A.device):
+        return _cholesky(uplo, A, blocksize)
+
+
+def _cholesky(uplo: UpperOrLower, A: DistMatrix,
+              blocksize: Optional[int]) -> DistMatrix:
     nb = blocksize or Blocksize()
     if blocksize is None:
         # panel-width knees of the JAX driver (measured on a TPU v5e,
@@ -149,11 +158,14 @@ def Cholesky(uplo: UpperOrLower, A: DistMatrix,
         from ..blas.level1 import Adjoint
 
         out = Adjoint(out)
-    if bool(torch.isnan(out.data).any()):
+    with trace.span("lapack.cholesky.nan_check"):
+        failed = bool(torch.isnan(out.data).any())
+    if failed:
         raise NonHPDMatrixException()
     return out
 
 
+@trace.traced("lapack.SolveAfter")
 def SolveAfter(uplo: UpperOrLower, orientation: Orientation, A: DistMatrix,
                B: DistMatrix) -> DistMatrix:
     """Solve using a computed Cholesky factor
@@ -166,6 +178,7 @@ def SolveAfter(uplo: UpperOrLower, orientation: Orientation, A: DistMatrix,
     return Trsm(LEFT, UPPER, NORMAL, NON_UNIT, 1.0, A, Y)
 
 
+@trace.traced("lapack.HPDSolve")
 def HPDSolve(uplo: UpperOrLower, orientation: Orientation, A: DistMatrix,
              B: DistMatrix, blocksize: Optional[int] = None) -> DistMatrix:
     """Solve A X = B for HPD A (reference: src/lapack_like/solve/HPD.cpp):

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.dmatrix import DistMatrix
 from ..core.environment import Blocksize
 from ..core.types import (
@@ -255,6 +256,12 @@ def LU(A: DistMatrix, blocksize: Optional[int] = None
        ) -> Tuple[DistMatrix, Permutation]:
     """Partially-pivoted LU: returns (packed LU, P) with P A = L U, unit L
     below the diagonal (reference: LU.cpp:47-98)."""
+    with trace.span("lapack.LU", A.device):
+        return _lu(A, blocksize)
+
+
+def _lu(A: DistMatrix, blocksize: Optional[int]
+        ) -> Tuple[DistMatrix, Permutation]:
     Am = A.redistribute(MC, MR)
     a = Am.data.clone()  # the factor is built in this buffer, in place
     M, N = a.shape
@@ -280,35 +287,38 @@ def LU(A: DistMatrix, blocksize: Optional[int] = None
     uout = torch.zeros_like(a)
     for k in range(nblk):
         k0 = k * nb
-        tail = rowmap[k0:]
-        cols = a[:, k0:k0 + nb]
-        sl = cols[tail]
-        lu, lperm = _lu_slab(sl.float() if low else sl)
-        lu = lu.to(a.dtype)
-        tail = tail[lperm]
-        rowmap[k0:] = tail
-        cols[tail] = lu  # in place, where the JAX code rebuilds `a`
+        with trace.span("lapack.lu.slab"):
+            tail = rowmap[k0:]
+            cols = a[:, k0:k0 + nb]
+            sl = cols[tail]
+            lu, lperm = _lu_slab(sl.float() if low else sl)
+            lu = lu.to(a.dtype)
+            tail = tail[lperm]
+            rowmap[k0:] = tail
+            cols[tail] = lu  # in place, where the JAX code rebuilds `a`
         if N - k0 - nb <= 0:
             continue
-        # batched log-depth inversion (blas/trinv.py)
-        inv11 = tri_inv_lower_unit(lu[:nb, :])
-        right = a[:, k0 + nb:]
-        U12 = local_gemm(inv11, right[tail[:nb]])
-        uout[k0:k0 + nb, k0 + nb:] = U12
-        Lphys = a.new_zeros((M, nb))
-        Lphys[tail[nb:]] = lu[nb:, :]
-        # the full-height trailing update (about 1.5x the flops of a
-        # right-looking one, elementalx/lapack/lu.py:369-370), in place
-        right -= local_gemm(Lphys, U12)
-    a = a[rowmap]
-    # overlay the logical-order U12 block-rows, in place of the JAX
-    # code's (M, N) where
-    for k in range(nblk):
-        k0 = k * nb
-        a[k0:k0 + nb, k0 + nb:] = uout[k0:k0 + nb, k0 + nb:]
-    _set_pad_diag(a, m, 0)  # restore the zero padding diagonal
-    a[A.m:, :] = 0
-    a[:, A.n:] = 0
+        with trace.span("lapack.lu.update"):
+            # batched log-depth inversion (blas/trinv.py)
+            inv11 = tri_inv_lower_unit(lu[:nb, :])
+            right = a[:, k0 + nb:]
+            U12 = local_gemm(inv11, right[tail[:nb]])
+            uout[k0:k0 + nb, k0 + nb:] = U12
+            Lphys = a.new_zeros((M, nb))
+            Lphys[tail[nb:]] = lu[nb:, :]
+            # the full-height trailing update (about 1.5x the flops of a
+            # right-looking one, elementalx/lapack/lu.py:369-370), in place
+            right -= local_gemm(Lphys, U12)
+    with trace.span("lapack.lu.gather"):
+        a = a[rowmap]
+        # overlay the logical-order U12 block-rows, in place of the JAX
+        # code's (M, N) where
+        for k in range(nblk):
+            k0 = k * nb
+            a[k0:k0 + nb, k0 + nb:] = uout[k0:k0 + nb, k0 + nb:]
+        _set_pad_diag(a, m, 0)  # restore the zero padding diagonal
+        a[A.m:, :] = 0
+        a[:, A.n:] = 0
     return Am.with_data(a), Permutation(rowmap, A.m)
 
 
@@ -352,6 +362,7 @@ def LUFullPiv(A: DistMatrix, blocksize: Optional[int] = None
     return Am.with_data(a), Permutation(rp, A.m), Permutation(cp, A.n)
 
 
+@trace.traced("lapack.SolveAfter")
 def SolveAfter(orientation: Orientation, LUpacked: DistMatrix,
                P: Permutation, B: DistMatrix) -> DistMatrix:
     """Solve A X = B given P A = L U (reference: LU/SolveAfter.hpp)."""
@@ -365,6 +376,7 @@ def SolveAfter(orientation: Orientation, LUpacked: DistMatrix,
     return P.apply_rows(Z.redistribute(MC, MR), inverse=True)
 
 
+@trace.traced("lapack.LinearSolve")
 def LinearSolve(A: DistMatrix, B: DistMatrix,
                 blocksize: Optional[int] = None) -> DistMatrix:
     """General solve via pivoted LU (reference: solve/Linear.cpp)."""

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.dmatrix import DistMatrix, padded_extent
 from ..core.grid import Grid
 
@@ -62,6 +63,7 @@ class Permutation:
         return Permutation(p, self.m)
 
     # -- application (reference: perm/PermuteRows.hpp etc.) --
+    @trace.traced("lapack.perm.apply_rows")
     def apply_rows(self, A: DistMatrix, inverse: bool = False) -> DistMatrix:
         p = self.inverse().perm if inverse else self.perm
         return A.with_data(A.data[p.to(A.device), :])
