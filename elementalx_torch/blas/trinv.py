@@ -51,15 +51,19 @@ def _inv_upper_unblocked(U: torch.Tensor) -> torch.Tensor:
 def tri_inv_upper(U: torch.Tensor) -> torch.Tensor:
     """Inverse of (a batch of) upper-triangular matrices via batched
     recursive 2x2 block partitioning. Entries below the diagonal are
-    ignored. The diagonal must be nonzero (callers guard padding with 1s)."""
+    ignored. The diagonal must be nonzero (callers guard padding with 1s).
+
+    The triangle is embedded in a (..., P, P) buffer, P the next power of
+    two, whose padding diagonal is set to 1 through a view of the
+    diagonal (``fill_``: the 1 travels as a kernel argument, so the host
+    does not wait for the stream, and nothing is written when n == P)."""
     n = U.shape[-1]
     batch = U.shape[:-2]
     P = max(_next_pow2(n), _BASE)
     # mask to the triangle and embed an identity in the padding
     Up = U.new_zeros((*batch, P, P))
     Up[..., :n, :n] = torch.triu(U)
-    pad = torch.arange(n, P, device=U.device)
-    Up[..., pad, pad] = 1
+    Up.diagonal(dim1=-2, dim2=-1)[..., n:].fill_(1)
 
     L = _inv_upper_unblocked(
         _blocks(Up, _BASE).diagonal(dim1=-4, dim2=-3).movedim(-1, -3))

@@ -187,13 +187,18 @@ def packed_getrf(sl: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     ``packed`` rows in pivoted order (U on and above the diagonal of the
     first w rows, unit-L multipliers below), ``lperm`` the elected rows
     followed by the others in ascending order. The counterpart of
-    ``pallas_getrf``."""
+    ``pallas_getrf``.
+
+    ``lperm`` is built on the device and the host never waits for it: the
+    elected flags are written by ``index_fill_``, whose 1 travels as a
+    kernel argument (``elected[piv] = 1`` would copy it from pageable
+    host memory, which waits for the stream to drain), and the rows never
+    elected come from a sort, not from ``torch.nonzero``."""
     Mt, w = sl.shape
     out, piv = getrf_panel(sl)
     elected = torch.zeros((Mt,), dtype=torch.int8, device=sl.device)
-    elected[piv] = 1
+    elected.index_fill_(0, piv, 1)
     # a stable sort puts the rows never elected first, in ascending order
-    # (no host round trip, unlike torch.nonzero)
     rest = torch.argsort(elected, stable=True)[: Mt - w]
     lperm = torch.cat([piv, rest])
     return out[lperm], lperm

@@ -105,11 +105,9 @@ def _chol_lower_left(a: torch.Tensor, nb: int,
 def _set_pad_diag(d: torch.Tensor, m: int, val) -> torch.Tensor:
     """Set the padding diagonal (rows/cols >= m) of ``d`` to ``val``, in
     place, and return ``d`` (the JAX code's masked where over the whole
-    array)."""
-    M = min(d.shape)
-    if M > m:
-        idx = torch.arange(m, M, device=d.device)
-        d[idx, idx] = val
+    array). Written through a view of the diagonal, so the host does not
+    wait for the stream as an indexed store of a Python number would."""
+    d.diagonal()[m:].fill_(val)
     return d
 
 
