@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..blas.gemm import Gemm
 from ..blas.level1 import Adjoint, GetSubmatrix, ShiftDiagonal
 from ..blas.trsm import Trsm
@@ -29,6 +30,7 @@ from ..core.types import (
 from ..kernels.elementwise import fill
 
 
+@trace.traced("lapack.LeastSquares")
 def LeastSquares(orientation: Orientation, A: DistMatrix, B: DistMatrix
                  ) -> DistMatrix:
     """min_X ||op(A) X - B||_F; underdetermined systems get the

@@ -15,6 +15,12 @@ to LAPACK-style geqrf (``_geqrf_slab``): the JAX package decides inside
 panel. ``cholqr_panels`` counts the panels each way. The b x b Cholesky
 and LU factors and geqrf are ``torch.linalg`` calls, as they are XLA ops
 outside any Pallas kernel in the JAX package.
+
+Spans (``trace.py``): ``lapack.QR`` and ``lapack.ApplyQ`` (device-timed);
+inside QR, ``lapack.qr.panel`` a panel, ``lapack.qr.geqrf`` a panel sent
+to geqrf, ``lapack.qr.predicate`` the host's read of the CholeskyQR2
+predicate (a wait on the device) and ``lapack.qr.update`` a trailing
+update.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..blas.gemm import local_gemm
 from ..blas.level1 import GetSubmatrix, MakeTrapezoidal
 from ..core.dmatrix import DistMatrix, pad_array
@@ -134,7 +141,8 @@ def _panel_cholqr(a: torch.Tensor, tau: torch.Tensor, k0: int, nb: int,
     low = a.dtype in _LOW
     s32 = sl.float() if low else sl
     if Mt < _CHOLQR_MIN_ASPECT * nb:
-        pk, tnew, T = _geqrf_slab(s32, nb)
+        with trace.span("lapack.qr.geqrf"):
+            pk, tnew, T = _geqrf_slab(s32, nb)
         cholqr_panels["short"] += 1
     else:
         dev = a.device
@@ -165,7 +173,9 @@ def _panel_cholqr(a: torch.Tensor, tau: torch.Tensor, k0: int, nb: int,
         ok = ((ortho_err < 0.25) & ident & (info1 == 0) & (info2 == 0)
               & torch.all(torch.isfinite(Rt)) & torch.all(torch.isfinite(V2))
               & torch.all(torch.abs(tau_new) > 0.5))
-        if bool(ok):
+        with trace.span("lapack.qr.predicate"):
+            accepted = bool(ok)
+        if accepted:
             r2 = torch.arange(nb, device=dev)[:, None]
             c2 = torch.arange(nb, device=dev)[None, :]
             pk = torch.cat([torch.where(r2 > c2, V1, Rt), V2], dim=0)
@@ -173,7 +183,8 @@ def _panel_cholqr(a: torch.Tensor, tau: torch.Tensor, k0: int, nb: int,
             T = -local_gemm(W, tri_inv_lower_unit(V1).mH)
             cholqr_panels["fast"] += 1
         else:
-            pk, tnew, T = _geqrf_slab(s32, nb)
+            with trace.span("lapack.qr.geqrf"):
+                pk, tnew, T = _geqrf_slab(s32, nb)
             cholqr_panels["slow"] += 1
     if low:
         pk, T = pk.to(a.dtype), T.to(a.dtype)
@@ -252,22 +263,30 @@ def _qr_packed(a: torch.Tensor, m: int, n: int, nb: int
     while k0 < ncols:
         w = min(nb, ncols - k0)
         T = None
-        if cholqr and w >= _CHOLQR_MIN_NB:
-            a, tau, T = _panel_cholqr(a, tau, k0, w, m)
-        else:
-            a, tau = _panel_qr(a, tau, k0, w, m)
+        with trace.span("lapack.qr.panel"):
+            if cholqr and w >= _CHOLQR_MIN_NB:
+                a, tau, T = _panel_cholqr(a, tau, k0, w, m)
+            else:
+                with trace.span("lapack.qr.geqrf"):
+                    a, tau = _panel_qr(a, tau, k0, w, m)
         if k0 + w < N:
-            V = extract_panel_V(a, k0, w)[k0:]
-            if T is None:
-                T = build_wy_T(V, tau[k0:k0 + w])
-            a[k0:, k0 + w:] = apply_block_reflector(V, T, a[k0:, k0 + w:],
-                                                    adjoint=True)
+            with trace.span("lapack.qr.update"):
+                V = extract_panel_V(a, k0, w)[k0:]
+                if T is None:
+                    T = build_wy_T(V, tau[k0:k0 + w])
+                a[k0:, k0 + w:] = apply_block_reflector(
+                    V, T, a[k0:, k0 + w:], adjoint=True)
         k0 += w
     return a, tau
 
 
 def QR(A: DistMatrix, blocksize: Optional[int] = None) -> QRFactorization:
     """Householder QR of an m x n matrix (reference: QR.cpp driver)."""
+    with trace.span("lapack.QR", A.device):
+        return _qr(A, blocksize)
+
+
+def _qr(A: DistMatrix, blocksize: Optional[int]) -> QRFactorization:
     Am = A.redistribute(MC, MR)
     nb = blocksize or Blocksize()
     if blocksize is None and A.grid.size == 1 and min(A.m, A.n) >= 2048:
@@ -285,13 +304,14 @@ def ApplyQ(orientation_adjoint: bool, fact: QRFactorization, B: DistMatrix,
            blocksize: Optional[int] = None) -> DistMatrix:
     """B := Q B or Q^H B (reference: qr::ApplyQ via
     ApplyPackedReflectors)."""
-    nb = blocksize or Blocksize()
-    packed = fact.packed
-    Bm = B.redistribute(MC, MR)
-    ncols = min(packed.m, packed.n)
-    out = ApplyPackedReflectors(packed.data, fact.tau, Bm.data, nb, ncols,
-                                adjoint=orientation_adjoint)
-    return Bm.with_data(Bm.mask_padding(out))
+    with trace.span("lapack.ApplyQ", B.device):
+        nb = blocksize or Blocksize()
+        packed = fact.packed
+        Bm = B.redistribute(MC, MR)
+        ncols = min(packed.m, packed.n)
+        out = ApplyPackedReflectors(packed.data, fact.tau, Bm.data, nb,
+                                    ncols, adjoint=orientation_adjoint)
+        return Bm.with_data(Bm.mask_padding(out))
 
 
 def ExplicitQR(A: DistMatrix, blocksize: Optional[int] = None,
