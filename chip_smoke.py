@@ -2130,13 +2130,15 @@ def main() -> None:
         k1_reset()
         k9_reset()
         qr.cholqr_panels.update(fast=0, slow=0, short=0)
+        qr.applyq_blocks.update(stored=0, rebuilt=0)
         t0 = time.perf_counter()
         out = fn()
         sync()
         ms = (time.perf_counter() - t0) * 1e3
         return out, ms, {"K1": matmul.launches, "K1 cores": k1_counts(),
                          "K9": k9_counts(),
-                         "cholqr": dict(qr.cholqr_panels)}
+                         "cholqr": dict(qr.cholqr_panels),
+                         "applyq": dict(qr.applyq_blocks)}
 
     ls_runs = {}
     for label, m13, n13 in (("(a) QR", n, n),

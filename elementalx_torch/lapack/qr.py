@@ -16,6 +16,14 @@ panel. ``cholqr_panels`` counts the panels each way. The b x b Cholesky
 and LU factors and geqrf are ``torch.linalg`` calls, as they are XLA ops
 outside any Pallas kernel in the JAX package.
 
+QR keeps the compact-WY T that each panel's trailing update applied, and
+ApplyQ applies Q or Q^H panel by panel with those T's at the factor's
+width; it builds a T (``build_wy_T``, a batched triangular inversion)
+only for a panel that had no trailing update. ``applyq_blocks`` counts
+the blocks each way. A factorization without stored T's (``from_reference``,
+``ColPivQR``) or an explicit ``blocksize`` takes ApplyPackedReflectors,
+which builds a T for every block.
+
 Spans (``trace.py``): ``lapack.QR`` and ``lapack.ApplyQ`` (device-timed);
 inside QR, ``lapack.qr.panel`` a panel, ``lapack.qr.geqrf`` a panel sent
 to geqrf, ``lapack.qr.predicate`` the host's read of the CholeskyQR2
@@ -67,6 +75,11 @@ class QRFactorization(NamedTuple):
 
     packed: DistMatrix
     tau: torch.Tensor
+    #: the compact-WY T of each ``panel_width``-wide panel, as its trailing
+    #: update applied it (None for a panel without one); None where the
+    #: factorization was not made by ``QR``
+    panel_T: Optional[Tuple[Optional[torch.Tensor], ...]] = None
+    panel_width: Optional[int] = None
 
     @staticmethod
     def from_reference(packed: np.ndarray, tau: np.ndarray, m: int, n: int,
@@ -93,6 +106,10 @@ _CHOLQR_MIN_ASPECT = 4
 #: reconstruction accepted), "slow" (the predicate failed: geqrf) and
 #: "short" (fewer than 4 nb rows: geqrf without the attempt)
 cholqr_panels = {"fast": 0, "slow": 0, "short": 0}
+
+#: blocks ApplyQ applied since the last reset: "stored" (with the T that
+#: QR kept for the panel) and "rebuilt" (with a T built for the block)
+applyq_blocks = {"stored": 0, "rebuilt": 0}
 
 
 def _use_cholqr_panels(dtype: torch.dtype, nb: int) -> bool:
@@ -250,15 +267,19 @@ def _panel_qr_loop(a: torch.Tensor, tau: torch.Tensor, k0: int, nb: int,
 
 
 def _qr_packed(a: torch.Tensor, m: int, n: int, nb: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               ) -> Tuple[torch.Tensor, torch.Tensor,
+                          Tuple[Optional[torch.Tensor], ...]]:
     """Blocked Householder QR of the padded data (a new tensor; ``a`` is
     not written). Panels are uniformly nb wide; each trailing update is
-    one compact-WY application to the exact (M-k0, N-k0-w) slice."""
+    one compact-WY application to the exact (M-k0, N-k0-w) slice.
+    Returns (a, tau, the T each panel's trailing update applied, None for
+    a panel without one)."""
     M, N = a.shape
     ncols = min(m, n)
     a = a.clone(memory_format=torch.contiguous_format)
     tau = torch.zeros((N,), dtype=a.dtype, device=a.device)
     cholqr = _use_cholqr_panels(a.dtype, nb)
+    panel_T = []
     k0 = 0
     while k0 < ncols:
         w = min(nb, ncols - k0)
@@ -276,8 +297,11 @@ def _qr_packed(a: torch.Tensor, m: int, n: int, nb: int
                     T = build_wy_T(V, tau[k0:k0 + w])
                 a[k0:, k0 + w:] = apply_block_reflector(
                     V, T, a[k0:, k0 + w:], adjoint=True)
+        else:
+            T = None
+        panel_T.append(T)
         k0 += w
-    return a, tau
+    return a, tau, tuple(panel_T)
 
 
 def QR(A: DistMatrix, blocksize: Optional[int] = None) -> QRFactorization:
@@ -296,22 +320,53 @@ def _qr(A: DistMatrix, blocksize: Optional[int]) -> QRFactorization:
         nb = max(nb, 512 if (min(A.m, A.n) >= 8192
                              and _use_cholqr_panels(Am.dtype, 512))
                  else 256)
-    a, tau = _qr_packed(Am.data, A.m, A.n, nb)
-    return QRFactorization(Am.with_data(Am.mask_padding(a)), tau)
+    a, tau, panel_T = _qr_packed(Am.data, A.m, A.n, nb)
+    return QRFactorization(Am.with_data(Am.mask_padding(a)), tau, panel_T,
+                           nb)
 
 
 def ApplyQ(orientation_adjoint: bool, fact: QRFactorization, B: DistMatrix,
            blocksize: Optional[int] = None) -> DistMatrix:
     """B := Q B or Q^H B (reference: qr::ApplyQ via
-    ApplyPackedReflectors)."""
+    ApplyPackedReflectors): with the T's QR kept, panel by panel at the
+    factor's width, unless ``blocksize`` asks for blocks of its own."""
     with trace.span("lapack.ApplyQ", B.device):
-        nb = blocksize or Blocksize()
         packed = fact.packed
         Bm = B.redistribute(MC, MR)
         ncols = min(packed.m, packed.n)
-        out = ApplyPackedReflectors(packed.data, fact.tau, Bm.data, nb,
-                                    ncols, adjoint=orientation_adjoint)
+        if blocksize is None and fact.panel_T is not None:
+            out = _apply_stored(packed.data, fact.tau, fact.panel_T,
+                                fact.panel_width, Bm.data, ncols,
+                                orientation_adjoint)
+        else:
+            nb = blocksize or Blocksize()
+            out = ApplyPackedReflectors(packed.data, fact.tau, Bm.data, nb,
+                                        ncols, adjoint=orientation_adjoint)
+            applyq_blocks["rebuilt"] += -(-ncols // nb)
         return Bm.with_data(Bm.mask_padding(out))
+
+
+def _apply_stored(packed: torch.Tensor, tau: torch.Tensor,
+                  panel_T: Tuple[Optional[torch.Tensor], ...], nb: int,
+                  A: torch.Tensor, ncols: int, adjoint: bool
+                  ) -> torch.Tensor:
+    """ApplyPackedReflectors at the factor's panel width nb, each panel
+    applied with its stored T (built only where the panel has none).
+    Returns a new tensor; A is not written."""
+    A = A.clone()
+    order = range(len(panel_T))
+    for b in (order if adjoint else reversed(order)):
+        k0 = b * nb
+        w = min(nb, ncols - k0)
+        V = extract_panel_V(packed[k0:, k0:], 0, w)
+        T = panel_T[b]
+        if T is None:
+            T = build_wy_T(V, tau[k0:k0 + w])
+            applyq_blocks["rebuilt"] += 1
+        else:
+            applyq_blocks["stored"] += 1
+        A[k0:] = apply_block_reflector(V, T, A[k0:], adjoint)
+    return A
 
 
 def ExplicitQR(A: DistMatrix, blocksize: Optional[int] = None,

@@ -7,7 +7,9 @@ to drain; the port writes such constants on the device instead
 device-side writes give the same tensors as the indexed stores. On the
 card every stage of the LU and Trsm paths runs under
 ``torch.cuda.set_sync_debug_mode("error")``, which raises at the first
-synchronizing call, and gives the same bits as with the mode off.
+synchronizing call, and gives the same bits as with the mode off; so does
+QR's ApplyQ on the T's the factorization kept, which gives the operator
+the rebuilt blocks give, to rounding.
 
 The ``cuda``-marked test imports no JAX and runs on the card with
 ``python -m pytest --noconftest -p no:cacheprovider -m cuda
@@ -21,6 +23,7 @@ import elementalx_torch as Et
 from elementalx_torch.blas.trinv import tri_inv_lower_unit, tri_inv_upper
 from elementalx_torch.kernels.getrf import packed_getrf
 from elementalx_torch.lapack.cholesky import _set_pad_diag
+from elementalx_torch.lapack import qr as tqr
 from elementalx_torch.lapack.lu import LU
 
 
@@ -112,3 +115,26 @@ def test_on_the_card_no_stage_waits_for_the_device(cuda, name):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adjoint", [True, False], ids=["QhB", "QB"])
+def test_on_the_card_applyq_on_stored_T_does_not_wait(cuda, adjoint):
+    """n = 2048 float32 takes nb = 256: five CholeskyQR2 panels and three
+    geqrf ones, seven of them with a T kept."""
+    a, b = _problem(cuda, torch.float32)
+    grid = Et.Grid(cuda)
+    fact = tqr.QR(Et.DistMatrix.from_global(a, grid=grid))
+    B = Et.DistMatrix.from_global(b, grid=grid)
+    tqr.ApplyQ(adjoint, fact, B)  # builds the kernels, warms the allocator
+    torch.cuda.synchronize()
+    tqr.applyq_blocks.update(stored=0, rebuilt=0)
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tqr.ApplyQ(adjoint, fact, B).replicated()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    assert tqr.applyq_blocks == {"stored": 7, "rebuilt": 1}
+    want = tqr.ApplyQ(adjoint, fact, B, fact.panel_width).replicated()
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-5
