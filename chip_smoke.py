@@ -21,8 +21,8 @@ Phases (each raises on failure, so the script exits non-zero):
      in the operands' type and its bound at the right peak (67 TFLOP/s
      of FP64 on the tensor cores for every float64 product);
   3. K3a (Cholesky diagonal block) against its plain version at w=512,
-     2048 and 200 on every route that takes the width (the cluster route,
-     the blocked route and the first design "steps"): exact zeros outside
+     2048 and 200 on every route that takes the width (the cluster route
+     and the blocked route): exact zeros outside
      the triangles, the NaN poisoning of a block that is not positive
      definite, the same bits twice; the routes and the plain version
      timed in turns beside the library pair (cholesky_ex, then
@@ -85,14 +85,11 @@ Phases (each raises on failure, so the script exits non-zero):
      case (K3b: the cluster route, or the blocked one at w=2048; K7: TMA
      tiles, or the same tiles filled by cp.async at n=16383 f32 and an
      odd float64 order, equal bit for bit to the TMA core on a copy with
-     16-byte rows); K3b's routes and its first
-     design ("grid") at (16384, 512) and (8192, 2048) in turns with the
-     plain version beside the library pair and the factor's chain floor,
-     K3c's route against the first design at kidx 15; K7 with its GB/s,
-     the TMA core in turns with the scalar unit (the first design) at
-     n=16384 and the cp.async core in turns with it at n=16383; K3c once
-     at each of the HPD
-     path's 32 panel shapes, the launches its JSON entry reports;
+     16-byte rows); K3b's routes at (16384, 512) and (8192, 2048) in
+     turns with the plain version beside the library pair and the
+     factor's chain floor, K3c's route against its plain version at kidx
+     15; K7 with its GB/s; K3c once at each of the HPD path's 32 panel
+     shapes, the launches its JSON entry reports;
  10. the fused-tail HPD slice: ``entry()`` at n=16384 under
      ``ELX_PALLAS_POTRF=1`` (set for the phase only), gated on the scaled
      residual and 32 K3b launches on the cluster route; a
@@ -152,9 +149,8 @@ it runs on: 67 TFLOP/s FP32, 989 TFLOP/s dense bf16 on the tensor cores,
 the H100 SXM's published peaks; for every float64 product the 67
 TFLOP/s of FP64 on the tensor cores, whatever units the core runs on);
 the line before it, ``off_path_kernels``, holds the cores no main path
-launched (the FMA core, its float64 time in turns with "dmma"; K7's
-scalar unit; K3's first designs; K3a's blocked route at float32
-w=2048: on the main paths that route runs in float64 alone, at the
+launched (the FMA core, its float64 time in turns with "dmma"; K3a's
+blocked route at float32 w=2048: on the main paths that route runs in float64 alone, at the
 float64 HPD step's w=512); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
 repository, it fails and prints no result.
@@ -543,10 +539,9 @@ def main() -> None:
     # blocks are g g^T / w + 2 I (condition number below 3), so both
     # factorizations agree to a few float32 ulps. Every route that takes
     # the width is checked (the cluster route up to CLUSTER_MAX_W, the
-    # blocked route, the first design "steps"): exact zeros outside the
-    # triangles, NaN in both outputs for a block that is not positive
-    # definite, the same bits on a second run (cluster and blocked), one
-    # launch counted on the route; then the routes and the plain version
+    # blocked route): exact zeros outside the triangles, NaN in both
+    # outputs for a block that is not positive definite, the same bits on
+    # a second run, one launch counted on the route; then the routes and the plain version
     # are timed in turns (A B C D D C B A) beside the library pair
     # (cholesky_ex, then solve_triangular against the identity) and
     # cholesky_ex alone. The chain floor: two cluster barriers a 32-wide
@@ -611,8 +606,8 @@ def main() -> None:
             require(l11.triu(1).abs().max().item() == 0.0
                     and inv_lh.tril(-1).abs().max().item() == 0.0,
                     f"K3a w={w} {rt}: nonzero entries outside the triangles")
-            require(rt == "steps" or (torch.equal(again[0], l11)
-                                      and torch.equal(again[1], inv_lh)),
+            require(torch.equal(again[0], l11)
+                    and torch.equal(again[1], inv_lh),
                     f"K3a w={w} {rt}: two runs give different bits")
             bad_l, bad_inv = k3a_launch(rt, -sym)
             sync()
@@ -1364,8 +1359,8 @@ def main() -> None:
 
     # Each case runs on the route route() gives it; at (16384, 512) and
     # (8192, 2048) without low_apply every route that takes the width
-    # (cluster, blocked, and the first design "grid") is also checked
-    # against the plain version and timed with it in turns, beside the
+    # (cluster and blocked) is also checked against the plain version and
+    # timed with it in turns, beside the
     # library pair (cholesky_ex, then solve_triangular for L21 =
     # pan21 L11^-T) and cholesky_ex alone, with the factor's chain floor.
     def k3b_pair(sym, pan21):
@@ -1431,7 +1426,7 @@ def main() -> None:
             o = k3b_launch(r, sym, pan, 0, False)
             sync()
             errs[r] = (o[w:] - ref[w:]).abs().max().item()
-            same = r == "grid" or torch.equal(o[:w], k3a_launch(r, sym)[0])
+            same = torch.equal(o[:w], k3a_launch(r, sym)[0])
             require(errs[r] <= rtol * scale and same,
                     f"K3b ({Mt},{w}) {r}: L21 off by {errs[r]} or L11 not "
                     f"K3a's on the same route")
@@ -1481,12 +1476,10 @@ def main() -> None:
     r0 = kmid * w3
     ms = in_turns({
         "cluster": lambda: potrf_panel_tail_full(sym, pan, kmid),
-        "grid": lambda: k3b_launch("grid", sym, pan, r0, False),
         "plain": lambda: potrf_panel_tail_full_plain(sym, pan, kmid)}, 5)
     pair_ms = time_ms(lambda: k3b_pair(sym, pan[r0 + w3:]), 5)
     print(f"K3c ({M3},{w3}) kidx={kmid} in turns: cluster {ms['cluster']:.4f}"
-          f" ms, the first design (grid) {ms['grid']:.4f} ms, plain "
-          f"{ms['plain']:.4f} ms; library pair (cholesky_ex + "
+          f" ms, plain {ms['plain']:.4f} ms; library pair (cholesky_ex + "
           f"solve_triangular) {pair_ms:.4f} ms; the factor's chain floor "
           f"{k3_floor(w3, torch.float32):.4f} ms")
     k3c_main = (k3c_err, ms["cluster"], ms["plain"],
@@ -1513,13 +1506,10 @@ def main() -> None:
     # reach y; two runs give the same bits. Each case names the core
     # route() gives it: the TMA tiles for rows 16-byte multiples apart (any
     # k0), the same tiles filled by cp.async otherwise (n = 16383 float32,
-    # the order of phase 10's second Symv, and an odd float64 order). At n
-    # = 16384 the TMA core runs in turns with the scalar unit (tma, unit,
-    # unit, tma) through their C entries; at n = 16383 the cp.async core
-    # runs in turns with it, the core it replaced on that route, and
-    # equals the TMA core bit for bit on a copy of A whose rows are 16-byte
-    # multiples apart (the same tiles, walk and sums).
-    k7_main, k7_unit = {}, None
+    # the order of phase 10's second Symv, and an odd float64 order). The
+    # cp.async core equals the TMA core bit for bit on a copy of A whose
+    # rows are 16-byte multiples apart (the same tiles, walk and sums).
+    k7_main = {}
     for n7, k0, dt, want in ((16384, 0, torch.float32, "tma"),
                              (16384, 5000, torch.float32, "tma"),
                              (4096, 0, torch.float64, "tma"),
@@ -1577,22 +1567,8 @@ def main() -> None:
               f"({tri_bytes / ms / 1e6:.1f} GB/s of the triangle; bound "
               f"{b7[0]:.4f} ms, {b7[0] / ms:.1%} of it)  plain "
               f"{plain_ms:.4f} ms")
-        if n7 in (16384, 16383) and k0 == 0:
-            core_ms, unit_ms = time_pair(lambda: k7_launch(core, An, v),
-                                         lambda: k7_launch("unit", An, v), 10)
-            print(f"K7 cores in turns at n={n7} f32: {core} {core_ms:.4f} ms "
-                  f"({tri_bytes / core_ms / 1e6:.1f} GB/s), unit (the first "
-                  f"design) {unit_ms:.4f} ms ({tri_bytes / unit_ms / 1e6:.1f} "
-                  f"GB/s)")
-            if core == "async":
-                uy = k7_launch("unit", An, v)
-                sync()
-                k7_unit = ((uy - ref).abs().max().item(), unit_ms, plain_ms,
-                           lib_ms, b7)
-                del uy
         del A, An, v, y, y2, ref
-    require(set(k7_main) == {"tma", "async"} and k7_unit is not None,
-            f"K7: rows {set(k7_main)}")
+    require(set(k7_main) == {"tma", "async"}, f"K7: rows {set(k7_main)}")
 
     # ---- 10. the fused-tail HPD slice ----
     os.environ["ELX_PALLAS_POTRF"] = "1"
@@ -1724,8 +1700,8 @@ def main() -> None:
                      "K7": {core: getattr(symv_lower, f"launches_{core}")
                             for core in K7_CORES},
                      "K1": matmul.launches}
-    require(blas_launches == {"K2": 2, "K7": {"tma": 1, "async": 1,
-                                              "unit": 0}, "K1": 0},
+    require(blas_launches == {"K2": 2, "K7": {"tma": 1, "async": 1},
+                              "K1": 0},
             f"Herk/Trrk/Symv launches {blas_launches}")
     checks = ((Hk.data, masked_rank_k_plain(True, -1.0, a, a.mT, 1.0, c)),
               (Tk.data, masked_rank_k_plain(True, -1.0, a, b, 1.0, c)),
@@ -2081,6 +2057,8 @@ def main() -> None:
     }
 
     def tensors(out):
+        if out is None or isinstance(out, int):
+            return []  # QR's panel_T entries and panel_width
         if isinstance(out, Et.DistMatrix):
             return [out.data]
         if isinstance(out, torch.Tensor):
@@ -2599,16 +2577,10 @@ def main() -> None:
         f"phase 2's {fma_case}", csrc + "matmul.cu",
         "elementalx/kernels/matmul.py:39", 0,
         (fma_err, fma_ms, dmma_row[2], dmma_row[4]), dmma_row[3]))
-    off_path.append(row(
-        "K7 lower-triangle symv, the first design (scalar unit), which no "
-        "route takes: off the main paths; in turns with async at n=16383",
-        csrc + "symv.cu", "elementalx/kernels/symv.py:66", 0, k7_unit,
-        k7_unit[3]))
     # K3a's and K3b's launches by route over the main-path runs (the HPD
     # default and fused paths in float32, the float64 HPD step, the
     # bf16-storage Cholesky's two, GenDefEig); K3a's blocked route is the
-    # float64 step's alone, and the first designs, which no path takes,
-    # keep their phase 3 and 9 rows on the off-path line.
+    # float64 step's alone.
     k3a_paths = {rt: launches["K3a routes"][rt]
                  + hpd64_launches["K3a routes"][rt]
                  + sum(a[rt] for a, _ in k3_16.values())
@@ -2619,22 +2591,14 @@ def main() -> None:
                  for rt in K3B_ROUTES}
     print(f"K3a launches by route on the main paths: {k3a_paths}; K3b "
           f"{k3b_paths}")
-    require(k3a_paths["steps"] == 0 and k3a_paths["blocked"]
-            == hpd64_launches["K3a routes"]["blocked"]
-            and k3b_paths["grid"] == 0,
-            f"a K3 route off the main paths launched: {k3a_paths} "
-            f"{k3b_paths}")
+    require(k3a_paths["blocked"] == hpd64_launches["K3a routes"]["blocked"],
+            f"K3a's blocked route launched off the float64 HPD step: "
+            f"{k3a_paths} {k3b_paths}")
     off_path += [
         row("K3a Cholesky diagonal block (potrf_block_inv; blocked route, "
             "f32 w=2048): no main path gives it float32; the float64 HPD "
             "step's row is on the kernels line", csrc + "potrf.cu",
             "elementalx/kernels/potrf.py:263", 0, k3_main["blocked"][:4]),
-        row("K3a Cholesky diagonal block, the first design (route steps, "
-            "w=512): off the main paths", csrc + "potrf.cu",
-            "elementalx/kernels/potrf.py:263", 0, k3_main["steps"][:4]),
-        row("K3b fused panel tail, the first design (route grid, (16384, "
-            "512)): off the main paths", csrc + "potrf_tail.cu",
-            "elementalx/kernels/potrf.py:289", 0, k3b_main["grid"][:4]),
     ]
     kernels += [
         row("K2 masked rank-k update (masked_rank_k)", csrc + "trrk.cu",

@@ -81,6 +81,28 @@ def _batched_diag_inv(T: torch.Tensor, nb: int, nblk: int,
     return (tri_inv_lower if lower else tri_inv_upper)(blocks)
 
 
+def _left_rec(T: torch.Tensor, tri_inv: torch.Tensor, nb: int, lower: bool,
+              k_lo: int, k_hi: int, Bp: torch.Tensor) -> torch.Tensor:
+    """X with S X = Bp, S the diagonal block of T over block rows and
+    columns [k_lo, k_hi): halve the range, solve the half that comes first,
+    update the other with one product, solve it. A module-level function,
+    not a closure that calls itself, so nothing holds T and tri_inv once
+    the solve returns."""
+    if k_hi - k_lo == 1:
+        return local_gemm(tri_inv[k_lo], Bp)
+    k_mid = (k_lo + k_hi) // 2
+    lo0, mid0, hi0 = k_lo * nb, k_mid * nb, k_hi * nb
+    if lower:
+        X1 = _left_rec(T, tri_inv, nb, lower, k_lo, k_mid, Bp[: mid0 - lo0])
+        R2 = Bp[mid0 - lo0:] - local_gemm(T[mid0:hi0, lo0:mid0], X1)
+        X2 = _left_rec(T, tri_inv, nb, lower, k_mid, k_hi, R2)
+    else:
+        X2 = _left_rec(T, tri_inv, nb, lower, k_mid, k_hi, Bp[mid0 - lo0:])
+        R1 = Bp[: mid0 - lo0] - local_gemm(T[lo0:mid0, mid0:hi0], X2)
+        X1 = _left_rec(T, tri_inv, nb, lower, k_lo, k_mid, R1)
+    return torch.cat([X1, X2], dim=0)
+
+
 def _left_solve(T: torch.Tensor, B: torch.Tensor, lower: bool,
                 nb: int) -> torch.Tensor:
     """Solve T X = B for triangular T (already prepped), blocked by
@@ -93,23 +115,23 @@ def _left_solve(T: torch.Tensor, B: torch.Tensor, lower: bool,
     nb = _pick_nb(M, max(nb, -(-M // 32)))
     nblk = M // nb
     tri_inv = _batched_diag_inv(T, nb, nblk, lower)
+    return _left_rec(T, tri_inv, nb, lower, 0, nblk, B)
 
-    def rec(k_lo: int, k_hi: int, Bp: torch.Tensor) -> torch.Tensor:
-        if k_hi - k_lo == 1:
-            return local_gemm(tri_inv[k_lo], Bp)
-        k_mid = (k_lo + k_hi) // 2
-        lo0, mid0, hi0 = k_lo * nb, k_mid * nb, k_hi * nb
-        if lower:
-            X1 = rec(k_lo, k_mid, Bp[: mid0 - lo0])
-            R2 = Bp[mid0 - lo0:] - local_gemm(T[mid0:hi0, lo0:mid0], X1)
-            X2 = rec(k_mid, k_hi, R2)
-        else:
-            X2 = rec(k_mid, k_hi, Bp[mid0 - lo0:])
-            R1 = Bp[: mid0 - lo0] - local_gemm(T[lo0:mid0, mid0:hi0], X2)
-            X1 = rec(k_lo, k_mid, R1)
-        return torch.cat([X1, X2], dim=0)
 
-    return rec(0, nblk, B)
+def _right_rec(T: torch.Tensor, tri_inv: torch.Tensor, nb: int, k_lo: int,
+               k_hi: int, Bp: torch.Tensor) -> torch.Tensor:
+    """X with X S^H = Bp, S the lower diagonal block of T over block rows
+    and columns [k_lo, k_hi):
+    [X1 X2] [[S11,.],[S21,S22]]^H = [B1 B2] =>
+    X1 = B1 inv(S11)^H;  X2 = (B2 - X1 S21^H) inv(S22)^H."""
+    if k_hi - k_lo == 1:
+        return local_gemm(Bp, tri_inv[k_lo].mH)
+    k_mid = (k_lo + k_hi) // 2
+    lo0, mid0, hi0 = k_lo * nb, k_mid * nb, k_hi * nb
+    X1 = _right_rec(T, tri_inv, nb, k_lo, k_mid, Bp[:, : mid0 - lo0])
+    R2 = Bp[:, mid0 - lo0:] - local_gemm(X1, T[mid0:hi0, lo0:mid0].mH)
+    X2 = _right_rec(T, tri_inv, nb, k_mid, k_hi, R2)
+    return torch.cat([X1, X2], dim=1)
 
 
 def _right_solve_adjoint_lower(T: torch.Tensor, B: torch.Tensor,
@@ -124,20 +146,7 @@ def _right_solve_adjoint_lower(T: torch.Tensor, B: torch.Tensor,
     nb = _pick_nb(M, max(nb, -(-M // 32)))
     nblk = M // nb
     tri_inv = _batched_diag_inv(T, nb, nblk, True)
-
-    # [X1 X2] [[T11,.],[T21,T22]]^H = [B1 B2] =>
-    # X1 = B1 inv(T11)^H;  X2 = (B2 - X1 T21^H) inv(T22)^H
-    def rec(k_lo: int, k_hi: int, Bp: torch.Tensor) -> torch.Tensor:
-        if k_hi - k_lo == 1:
-            return local_gemm(Bp, tri_inv[k_lo].mH)
-        k_mid = (k_lo + k_hi) // 2
-        lo0, mid0, hi0 = k_lo * nb, k_mid * nb, k_hi * nb
-        X1 = rec(k_lo, k_mid, Bp[:, : mid0 - lo0])
-        R2 = Bp[:, mid0 - lo0:] - local_gemm(X1, T[mid0:hi0, lo0:mid0].mH)
-        X2 = rec(k_mid, k_hi, R2)
-        return torch.cat([X1, X2], dim=1)
-
-    return rec(0, nblk, B)
+    return _right_rec(T, tri_inv, nb, 0, nblk, B)
 
 
 def Trsm(side: LeftOrRight, uplo: UpperOrLower, orientation: Orientation,

@@ -137,11 +137,6 @@ def check_launch(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
-def current_stream(t: torch.Tensor) -> int:
-    """The raw cudaStream_t of PyTorch's current stream on t's device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 class Entry:
     """One C entry of the kernel library, named with its ctypes argument
     types where a module is imported and bound on its first call (the
@@ -194,9 +189,10 @@ def raw_stream(t: torch.Tensor) -> int:
 
 def launch(entry: Entry, t: torch.Tensor, *args) -> None:
     """Call ``entry(*args, stream)`` on PyTorch's current stream of t's
-    device and raise on a CUDA error. The lean path of the host-bound
-    kernels: no device guard when t's device is already current, the raw
-    stream handle without a Stream object, the argument types set once."""
+    device and raise, naming the entry, on a CUDA error. Every kernel
+    wrapper launches through it: no device guard when t's device is
+    already current, the raw stream handle without a Stream object, the
+    argument types set once."""
     if not _queries:
         _bind_queries()
     get_device, raw = _queries

@@ -15,7 +15,7 @@
 // 1 MB, but a thread-block cluster of 16 SMs holds it with room to spare.
 //
 // What bounds it: the chain of dependent 32-wide steps, not FLOPs or
-// bytes (w^3 / 3 FMAs: 0.0013 ms at w = 512 on 67 TFLOP/s). Three routes,
+// bytes (w^3 / 3 FMAs: 0.0013 ms at w = 512 on 67 TFLOP/s). Two routes,
 // picked by kernels/potrf.py:route from w and the dtype alone:
 //
 // Route "cluster" (w <= 512 float32, w <= 384 float64; this design): one
@@ -64,11 +64,6 @@
 // pipeline (gemm_f32_pipe.cuh) in float32, on its FMA core (gemm_tile.cuh)
 // in float64. A copy and four launches a block, 14 launches at w = 2048,
 // plus one that writes the zeros right of L's diagonal blocks (or NaN).
-//
-// Route "steps" (the first design, kept to be timed against): 32-wide
-// steps of three launches each (potf2 on one CTA, trsm_rows, a lower-tile
-// GEMM), then a doubling inverse over an order padded to 32 * 2^p, about
-// 58 launches at w = 512 with the block in global memory between them.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -100,173 +95,9 @@ __device__ __forceinline__ double qnan<double>() {
   return __longlong_as_double(0x7ff8000000000000LL);
 }
 
-// ===== route "steps" (the first design) ===================================
-namespace steps {
-
-constexpr int kNB = 32;  // width of one factorization step: one warp
-
-// work <- lower(S) on [0, w)^2, identity on the padding diagonal, zeros
-// elsewhere; xinv <- 0; flag <- 0.
-template <typename T>
-__global__ void init_kernel(const T* sym, long long lds, T* work, T* xinv,
-                            int* flag, int w, int W) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) *flag = 0;
-  const long long total = static_cast<long long>(W) * W;
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int i = static_cast<int>(e / W), j = static_cast<int>(e % W);
-    T v = T(0);
-    if (i < w && j < w) {
-      if (j <= i) v = sym[i * lds + j];
-    } else if (i == j) {
-      v = T(1);
-    }
-    work[e] = v;
-    xinv[e] = T(0);
-  }
-}
-
-// Factor the 32x32 diagonal block at (k, k) of work in shared memory,
-// write L_kk (zeros above its diagonal) back, and write inv(L_kk) into the
-// same block of xinv. One thread per entry.
-template <typename T>
-__global__ void __launch_bounds__(kNB* kNB)
-    potf2_kernel(T* work, T* xinv, int W, int k, int* flag) {
-  __shared__ T s[kNB][kNB + 1];
-  __shared__ T x[kNB][kNB + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;  // column, row
-  T* blk = work + static_cast<long long>(k) * W + k;
-  s[ty][tx] = tx <= ty ? blk[static_cast<long long>(ty) * W + tx] : T(0);
-  __syncthreads();
-  for (int j = 0; j < kNB; ++j) {
-    const T d = s[j][j];
-    __syncthreads();  // every thread holds the pivot before it is replaced
-    if (tx == 0 && ty == 0 && !(d > T(0))) *flag = 1;
-    const T r = sqrt(d);
-    if (tx == j && ty >= j) s[ty][j] = ty == j ? r : s[ty][j] / r;
-    __syncthreads();
-    if (tx > j && ty >= tx) s[ty][tx] -= s[ty][j] * s[tx][j];
-    __syncthreads();
-  }
-  // inv(L_kk) by forward substitution, lane c of warp 0 owning column c.
-  if (ty == 0) {
-    const int c = tx;
-    for (int i = 0; i < kNB; ++i) {
-      T v = T(0);
-      if (i >= c) {
-        T sum = i == c ? T(1) : T(0);
-        for (int q = c; q < i; ++q) sum -= s[i][q] * x[q][c];
-        v = sum / s[i][i];
-      }
-      x[i][c] = v;
-    }
-  }
-  __syncthreads();
-  blk[static_cast<long long>(ty) * W + tx] = tx <= ty ? s[ty][tx] : T(0);
-  xinv[static_cast<long long>(k + ty) * W + k + tx] = x[ty][tx];
-}
-
-// Rows below the diagonal block: A21 <- A21 * inv(L_kk)^T, in place. Each
-// warp loads one row (one element per lane) before it writes it back.
-template <typename T>
-__global__ void trsm_rows_kernel(T* work, const T* xinv, int W, int k) {
-  __shared__ T D[kNB][kNB + 1];
-  for (int e = threadIdx.x; e < kNB * kNB; e += blockDim.x)
-    D[e / kNB][e % kNB] =
-        xinv[static_cast<long long>(k + e / kNB) * W + k + e % kNB];
-  __syncthreads();
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int nwarps = blockDim.x / 32;
-  for (int r = k + kNB + blockIdx.x * nwarps + warp; r < W;
-       r += gridDim.x * nwarps) {
-    T* row = work + static_cast<long long>(r) * W + k;
-    const T a = row[lane];
-    T acc = T(0);
-#pragma unroll
-    for (int j = 0; j < kNB; ++j)
-      acc += __shfl_sync(0xffffffffu, a, j) * D[lane][j];
-    row[lane] = acc;
-  }
-}
-
-// l11 <- work[:w, :w]; invlh <- xinv[:w, :w]^T through a shared-memory
-// tile; both NaN when flag is set.
-template <typename T>
-__global__ void finalize_kernel(const T* work, const T* xinv, T* l11,
-                                T* invlh, const int* flag, int w, int W) {
-  __shared__ T tile[32][33];
-  const bool bad = *flag != 0;
-  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
-  for (int yy = threadIdx.y; yy < 32; yy += blockDim.y) {
-    const int i = r0 + yy, j = c0 + threadIdx.x;
-    if (i < w && j < w)
-      l11[static_cast<long long>(i) * w + j] =
-          bad ? qnan<T>() : work[static_cast<long long>(i) * W + j];
-    const int xi = c0 + yy, xj = r0 + threadIdx.x;  // transposed read
-    tile[yy][threadIdx.x] =
-        xi < W && xj < W ? xinv[static_cast<long long>(xi) * W + xj] : T(0);
-  }
-  __syncthreads();
-  for (int yy = threadIdx.y; yy < 32; yy += blockDim.y) {
-    const int i = r0 + yy, j = c0 + threadIdx.x;
-    if (i < w && j < w)
-      invlh[static_cast<long long>(i) * w + j] =
-          bad ? qnan<T>() : tile[threadIdx.x][yy];
-  }
-}
-
-template <typename T>
-cudaError_t potrf_block_inv(int w, int W, const T* sym, long long lds, T* l11,
-                            T* invlh, T* work, T* xinv, T* tmp, int* flag,
-                            cudaStream_t st) {
-  const long long total = static_cast<long long>(W) * W;
-  const int init_blocks = static_cast<int>(
-      total / 256 + 1 < 4096 ? total / 256 + 1 : 4096);
-  init_kernel<T><<<init_blocks, 256, 0, st>>>(sym, lds, work, xinv, flag, w, W);
-  ELX_RETURN_IF_ERROR(cudaGetLastError());
-
-  for (int k = 0; k < W; k += kNB) {
-    potf2_kernel<T><<<1, dim3(kNB, kNB), 0, st>>>(work, xinv, W, k, flag);
-    ELX_RETURN_IF_ERROR(cudaGetLastError());
-    const int rows = W - k - kNB;
-    if (rows <= 0) continue;
-    const int tb = (rows + 7) / 8 < 1024 ? (rows + 7) / 8 : 1024;
-    trsm_rows_kernel<T><<<tb, 256, 0, st>>>(work, xinv, W, k);
-    ELX_RETURN_IF_ERROR(cudaGetLastError());
-    T* l21 = work + static_cast<long long>(k + kNB) * W + k;
-    const elx::GemmArgs syrk{rows, rows, kNB, l21, W, 1, 0, l21, 1, W, 0,
-                             l21 + kNB, W, 1, 0, -1.0, 1.0, 1};
-    ELX_RETURN_IF_ERROR((elx::launch_gemm<T, T, T>(syrk, 1, st)));
-  }
-
-  // Doubling inverse: for each pair (A at a0 = 2ts, C at c0 = a0 + s),
-  //   tmp_t = L[c0, a0] * X[a0, a0];   X[c0, a0] = -X[c0, c0] * tmp_t.
-  for (long long s = kNB; s < W; s *= 2) {
-    const int npair = static_cast<int>(W / (2 * s));
-    const long long diag = 2 * s * (W + 1);  // from one pair to the next
-    const elx::GemmArgs left{static_cast<int>(s), static_cast<int>(s),
-                             static_cast<int>(s), work + s * W, W, 1, diag,
-                             xinv, W, 1, diag, tmp, s, 1, s * s,
-                             1.0, 0.0, 0};
-    ELX_RETURN_IF_ERROR((elx::launch_gemm<T, T, T>(left, npair, st)));
-    const elx::GemmArgs right{static_cast<int>(s), static_cast<int>(s),
-                              static_cast<int>(s), xinv + s * W + s, W, 1,
-                              diag, tmp, s, 1, s * s, xinv + s * W, W, 1,
-                              diag, -1.0, 0.0, 0};
-    ELX_RETURN_IF_ERROR((elx::launch_gemm<T, T, T>(right, npair, st)));
-  }
-
-  const dim3 fgrid((w + 31) / 32, (w + 31) / 32);
-  finalize_kernel<T><<<fgrid, dim3(32, 8), 0, st>>>(work, xinv, l11, invlh,
-                                                    flag, w, W);
-  return cudaGetLastError();
-}
-
-}  // namespace steps
 }  // namespace
 
-// ===== routes "cluster" and "blocked" (shared with K3b/K3c) ===============
+// ===== the routes "cluster" and "blocked" (shared with K3b/K3c) ===========
 
 namespace elx {
 namespace chol {
@@ -937,13 +768,6 @@ namespace {
 template <typename T>
 cudaError_t block_inv(int route, int w, const T* sym, long long lds, T* l11,
                       T* invlh, T* ws, int* flags, cudaStream_t st) {
-  if (route == 0) {
-    int W = 32;
-    while (W < w) W *= 2;
-    const long long WW = static_cast<long long>(W) * W;
-    return steps::potrf_block_inv<T>(w, W, sym, lds, l11, invlh, ws, ws + WW,
-                                     ws + 2 * WW, flags, st);
-  }
   if (route == 1) {
     const elx::chol::Call<T> c{w,   w, 0,     0, 0,     sym, lds, sym,
                                lds, 1, l11,   w, invlh, w,   flags, ws};
@@ -964,7 +788,8 @@ extern "C" int elx_potrf_stamps(void* buffer) {
   return cudaMemcpyToSymbol(elx::chol::g_stamps, &p, sizeof(p));
 }
 
-// route: 0 "steps", 1 "cluster", 2 "blocked"; dtype: 0 float, 1 double.
+// route: 1 "cluster", 2 "blocked" (0, the retired first design, and any
+// other code return cudaErrorInvalidValue); dtype: 0 float, 1 double.
 // sym: (w, w), row stride lds, unit column stride; l11, invlh: (w, w)
 // contiguous. ws and flags as kernels/potrf.py:workspace sizes them for
 // the route (zeroed flags before the first call of the cluster and

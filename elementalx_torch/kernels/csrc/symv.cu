@@ -13,7 +13,7 @@
 // and out[j] (A_ij^T v_i) as per-step partial rows, and segment-sums the
 // partials outside the kernel.
 //
-// Three cores, each one cooperative launch over the lower triangle in which
+// Two cores, each one cooperative launch over the lower triangle in which
 // every block adds its share into its own partial y (one length-n vector
 // per block, zeroed by the block), and after one grid-wide barrier each
 // row's owner sums the partials in block order. No float atomics: the
@@ -33,20 +33,14 @@
 //     instead of TMA boxes. On a matrix whose base is 16-byte aligned it
 //     takes the same tiles as "tma" on a copy with 16-byte rows, so the
 //     two give the same bits.
-//   - "unit" (elx_symv_lower), the first design, which no route takes
-//     since "async" replaced it (kept to be timed in turns): the scalar
-//     symv unit (32 rows x 1024 columns, each thread 4 columns 1 KB
-//     apart, row sums by a butterfly reduce-scatter), units dealt
-//     round-robin over the blocks in strip order.
 //
 // What bounds it: the bytes of the lower triangle, n^2/2 words (537 MB at
 // n = 16384 in float, 0.16 ms at 3.35 TB/s); torch.mv on a fully stored
-// symmetric matrix reads twice that. The partial y's add about 3 G n
-// words of traffic for the "unit" core (zeroing, the column updates, the
-// final sum; G blocks, 2 per SM), mostly in L2; the "tma" core zeroes and
-// sums only the rows each block touched, about two thirds of that. The
-// "tma" core also reads the upper half of the diagonal tiles (1/128 of the
-// triangle at n = 16384) and discards it; "async" does not read it. Rows
+// symmetric matrix reads twice that. The partial y's add about 2 G n
+// words of traffic, mostly in L2 (G blocks, 2 per SM): each block zeroes
+// and sums only the rows its tiles touched. The "tma" core also reads the
+// upper half of the diagonal tiles (1/128 of the triangle at n = 16384)
+// and discards it; "async" does not read it. Rows
 // that are not 16-byte multiples apart cost "async" about 12% more
 // sectors than the triangle's bytes (a float32 tile row of 256 bytes
 // that starts inside a 32-byte sector spans nine sectors, not eight).
@@ -60,9 +54,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = elx::kSymvThreads;  // threads of a block
-constexpr int kWarps = elx::kSymvWarps;
-constexpr int kR = elx::kSymvR;              // rows of a unit
-constexpr int kUW = elx::kSymvUW;            // columns of a unit
 #ifndef ELX_SYMV_BLOCKS_PER_SM
 #define ELX_SYMV_BLOCKS_PER_SM 2
 #endif
@@ -73,65 +64,6 @@ constexpr int kBlocksPerSM = ELX_SYMV_BLOCKS_PER_SM;  // most blocks per SM
     const cudaError_t e_ = (expr);    \
     if (e_ != cudaSuccess) return e_; \
   } while (0)
-
-template <typename T>
-struct SymvArgs {
-  const T* a;     // (n, n), row stride lda; lower triangle read
-  long long lda;
-  int n;
-  const T* v;     // (n,)
-  T* y;           // (n,)
-  T* ypart;       // (G, n) per-block partial y
-};
-
-// y on the block's own rows (after the grid barrier): the G partials
-// summed in block order.
-template <typename T>
-__device__ void sum_partials(const T* ypart, int n, T* y) {
-  const int G = gridDim.x;
-  for (int r = blockIdx.x * kThreads + threadIdx.x; r < n;
-       r += G * kThreads) {
-    T s[4] = {T(0), T(0), T(0), T(0)};
-    const T* col = ypart + r;
-    int bb = 0;
-    for (; bb + 4 <= G; bb += 4) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        s[k] += __ldcg(col + static_cast<long long>(bb + k) * n);
-    }
-    for (; bb < G; ++bb) s[0] += __ldcg(col + static_cast<long long>(bb) * n);
-    y[r] = (s[0] + s[1]) + (s[2] + s[3]);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) symv_kernel(SymvArgs<T> g) {
-  __shared__ T svr[kR];
-  __shared__ T srow[kWarps][kR];
-  cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x, G = gridDim.x, b = blockIdx.x;
-  const int n = g.n;
-  T* yp = g.ypart + static_cast<long long>(b) * n;
-  const T* v = g.v;
-  const auto vat = [v](int r) { return v[r]; };
-  for (int r = tid; r < n; r += kThreads) yp[r] = T(0);
-
-  // units in strip order, unit u to block u mod G: this block's first unit
-  // in a strip is q0 = (b - units before the strip) mod G
-  const int nstrips = (n + kR - 1) / kR;
-  int q0 = b;
-  for (int s = 0; s < nstrips; ++s) {
-    const int rs = s * kR, re = min(rs + kR, n);
-    const int nq = (re - 1) / kUW + 1;
-    for (int q = q0; q < nq; q += G)
-      elx::symv_unit(g.a, g.lda, n, vat, rs, re, q * kUW, yp, svr, srow);
-    q0 -= nq % G;
-    if (q0 < 0) q0 += G;
-  }
-  grid.sync();
-
-  sum_partials(g.ypart, n, g.y);
-}
 
 template <typename T>
 struct SymvTmaArgs {
@@ -221,12 +153,6 @@ cudaError_t launch(Kernel kernel, int smem, void** args, int grid,
 }
 
 template <typename T>
-cudaError_t launch_unit(SymvArgs<T> g, int grid, cudaStream_t st) {
-  void* args[] = {&g};
-  return launch(symv_kernel<T>, 0, args, grid, st);
-}
-
-template <typename T>
 cudaError_t launch_tma(int n, const void* base, int c0, long long lda,
                        const void* v, void* y, void* ypart, int grid,
                        cudaStream_t st) {
@@ -274,12 +200,6 @@ cudaError_t launch_async(int n, const void* a, int c0, long long lda,
 
 // Blocks of the cooperative launch of each core; the caller sizes ypart
 // with it.
-extern "C" int elx_symv_grid(int dtype, int* grid) {
-  if (dtype == 0) return grid_size(symv_kernel<float>, 0, grid);
-  if (dtype == 1) return grid_size(symv_kernel<double>, 0, grid);
-  return cudaErrorInvalidValue;
-}
-
 extern "C" int elx_symv_tma_grid(int dtype, int* grid) {
   if (dtype == 0)
     return grid_size(symv_tma_kernel<float>,
@@ -297,30 +217,6 @@ extern "C" int elx_symv_async_grid(int dtype, int* grid) {
   if (dtype == 1)
     return grid_size(symv_async_kernel<double>,
                      elx::SymvTiles<double, true>::kSmemBytes, grid);
-  return cudaErrorInvalidValue;
-}
-
-// The "unit" core. dtype: 0 float, 1 double. a: n x n with row stride lda
-// (unit column stride), lower triangle read; v, y: (n,); ypart: (grid, n)
-// scratch.
-extern "C" int elx_symv_lower(int dtype, int n, const void* a, long long lda,
-                              const void* v, void* y, void* ypart, int grid,
-                              void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n < 0 || lda < n || grid <= 0) return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  if (dtype == 0)
-    return launch_unit<float>(
-        SymvArgs<float>{static_cast<const float*>(a), lda, n,
-                        static_cast<const float*>(v), static_cast<float*>(y),
-                        static_cast<float*>(ypart)},
-        grid, st);
-  if (dtype == 1)
-    return launch_unit<double>(
-        SymvArgs<double>{static_cast<const double*>(a), lda, n,
-                         static_cast<const double*>(v),
-                         static_cast<double*>(y), static_cast<double*>(ypart)},
-        grid, st);
   return cudaErrorInvalidValue;
 }
 

@@ -37,20 +37,15 @@ import numpy as np
 import torch
 
 from .. import trace
-from .common import (
-    DTYPE_CODE,
-    check_launch,
-    current_stream,
-    kernel_function,
-    on_cuda,
-)
+from .common import DTYPE_CODE, Entry, launch, on_cuda
 
 #: columns of one group and most CTAs of a group launch (kNB, kMaxGrid in
 #: csrc/getrf.cu)
 GROUP = 32
 MAX_GRID = 1024
 
-_ARGTYPES = (ctypes.c_int,) * 5 + (ctypes.c_void_p,) * 10
+_ENTRY = Entry("elx_getrf_panel",
+               (ctypes.c_int,) * 5 + (ctypes.c_void_p,) * 10)
 
 ROUTES = ("cluster", "grid")
 _ROUTE_CODE = {"grid": 0, "cluster": 1}
@@ -126,9 +121,8 @@ def _launch(rt: str, a: torch.Tensor, csize: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One K4 call on route ``rt`` (the cluster route with ``csize`` CTAs,
     ``cluster_ctas`` when 0), counted on that route. ``getrf_panel`` calls
-    it with ``route``'s choice; tests and probes hold the routes and
-    cluster sizes against each other with it."""
-    _check(a)
+    it with ``route``'s choice on a checked panel; tests and probes hold
+    the routes and cluster sizes against each other with it."""
     Mt, w = a.shape
     dev, dt = a.device, a.dtype
     if rt == "cluster":
@@ -153,12 +147,9 @@ def _launch(rt: str, a: torch.Tensor, csize: int = 0
                         device=dev)]
     ptrs = [x.data_ptr() if isinstance(x, torch.Tensor) else None
             for x in grid_scratch]
-    fn = kernel_function("elx_getrf_panel", _ARGTYPES)
-    with torch.cuda.device(dev):
-        rc = fn(_ROUTE_CODE[rt], csize, DTYPE_CODE[dt], Mt, w,
-                out.data_ptr(), piv.data_ptr(), used.data_ptr(),
-                mbuf.data_ptr(), ubuf.data_ptr(), *ptrs, current_stream(a))
-    check_launch(rc, "elx_getrf_panel")
+    launch(_ENTRY, out, _ROUTE_CODE[rt], csize, DTYPE_CODE[dt], Mt, w,
+           out.data_ptr(), piv.data_ptr(), used.data_ptr(), mbuf.data_ptr(),
+           ubuf.data_ptr(), *ptrs)
     trace.count(getrf_panel, rt)
     return out, piv.long()
 

@@ -34,15 +34,7 @@ from typing import Tuple
 import torch
 
 from .. import trace
-from .common import (
-    DTYPE_CODE,
-    cdiv,
-    check_launch,
-    cooperative_grid,
-    current_stream,
-    kernel_function,
-    on_cuda,
-)
+from .common import DTYPE_CODE, Entry, cdiv, cooperative_grid, launch, on_cuda
 
 #: the widest panel (kMaxNB in csrc/latrd.cu)
 MAX_NB = 128
@@ -50,8 +42,9 @@ MAX_NB = 128
 #: the symv's tile order and the tiles of one of its units (csrc/latrd.cu)
 TILE, UNIT_TILES = 64, 4
 
-_ARGTYPES = ((ctypes.c_int,) * 5 + (ctypes.c_void_p, ctypes.c_longlong)
-             + (ctypes.c_void_p,) * 14 + (ctypes.c_int, ctypes.c_void_p))
+PANEL = Entry("elx_latrd_panel",
+              (ctypes.c_int,) * 5 + (ctypes.c_void_p, ctypes.c_longlong)
+              + (ctypes.c_void_p,) * 14 + (ctypes.c_int, ctypes.c_void_p))
 
 
 def latrd_panel_plain(a: torch.Tensor, k0: int, w: int, nb: int = MAX_NB
@@ -92,12 +85,13 @@ def _check(a: torch.Tensor, k0: int, w: int, nb: int) -> None:
                          f"k0 + w <= M - 2; got M={M} k0={k0} w={w} nb={nb}")
 
 
-def _launch(a: torch.Tensor, k0: int, w: int, nb: int, panel=None,
-            grid: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _launch(a: torch.Tensor, k0: int, w: int, nb: int,
+            panel: Entry = PANEL, grid: int = 0
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K5 on a checked CUDA ``a`` and return (P, W, tau); counts
     nothing. ``panel`` and ``grid`` (the C entry and its cooperative grid)
     default to the kernel library's; the phase probe (probes/k5.py) passes
-    those of its instrumented build."""
+    an Entry of its instrumented build and that build's grid."""
     M = a.shape[0]
     elem = a.element_size()
     if (a.stride(1) != 1 or a.stride(0) < M or (a.stride(0) * elem) % 16
@@ -127,15 +121,12 @@ def _launch(a: torch.Tensor, k0: int, w: int, nb: int, panel=None,
     pdots = small[2 * G:2 * G + 2 * MAX_NB * G]
     dots = small[2 * G + 2 * MAX_NB * G:]
     counters = torch.zeros((w,), dtype=torch.int32, device=dev)
-    fn = panel or kernel_function("elx_latrd_panel", _ARGTYPES)
-    with torch.cuda.device(dev):
-        rc = fn(DTYPE_CODE[dt], M, k0, w, nb, a.data_ptr(), a.stride(0),
-                Pt.data_ptr(), Wt.data_ptr(), VWr[0].data_ptr(),
-                VWr[1].data_ptr(), tau.data_ptr(), vecs[0].data_ptr(),
-                vecs[1].data_ptr(), colpart.data_ptr(), rowpart.data_ptr(),
-                pnorm.data_ptr(), pdots.data_ptr(), dots.data_ptr(),
-                pvp.data_ptr(), counters.data_ptr(), G, current_stream(a))
-    check_launch(rc, "elx_latrd_panel")
+    launch(panel, a, DTYPE_CODE[dt], M, k0, w, nb, a.data_ptr(), a.stride(0),
+           Pt.data_ptr(), Wt.data_ptr(), VWr[0].data_ptr(), VWr[1].data_ptr(),
+           tau.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+           colpart.data_ptr(), rowpart.data_ptr(), pnorm.data_ptr(),
+           pdots.data_ptr(), dots.data_ptr(), pvp.data_ptr(),
+           counters.data_ptr(), G)
     return Pt.mT, Wt.mT, tau
 
 

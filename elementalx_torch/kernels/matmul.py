@@ -51,16 +51,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import trace
-from .common import (
-    DTYPE_CODE,
-    Entry,
-    cdiv,
-    check_launch,
-    current_stream,
-    kernel_function,
-    launch,
-    on_cuda,
-)
+from .common import DTYPE_CODE, Entry, cdiv, launch, on_cuda
 
 _SUPPORTED = {
     (torch.float32, torch.float32),
@@ -69,31 +60,20 @@ _SUPPORTED = {
     (torch.bfloat16, torch.float32),
 }
 
-_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-             ctypes.c_void_p)
-_WGMMA_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_void_p)
-_ASYNC_ARGTYPES = (_WGMMA_ARGTYPES[1:-1] + (ctypes.c_int,)
-                   + _WGMMA_ARGTYPES[-1:])
-_SKINNY = Entry("elx_matmul_skinny",
-                (ctypes.c_int,) * 6
-                + (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong) * 3
-                + (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p))
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+#: each operand's pointer and strides, then (the cp.async and tensor
+#: cores) whether it is read M- or N-major
+_OPS = (_P, _L, _L) * 3
+_MN_OPS = (_P, _L, _L, _I) * 2 + (_P, _L, _L)
 
 #: the cores and the C entry of each
-CORES = {"wgmma": "elx_matmul_wgmma", "fma_async": "elx_matmul_fma_async",
-         "dmma": "elx_matmul_dmma", "fma": "elx_matmul",
-         "skinny": "elx_matmul_skinny"}
+CORES = {"wgmma": Entry("elx_matmul_wgmma", (_I,) * 4 + _MN_OPS + (_P,)),
+         "fma_async": Entry("elx_matmul_fma_async",
+                            (_I,) * 3 + _MN_OPS + (_I, _P)),
+         "dmma": Entry("elx_matmul_dmma", (_I,) * 3 + _MN_OPS + (_I, _P)),
+         "fma": Entry("elx_matmul", (_I,) * 5 + _OPS + (_P,)),
+         "skinny": Entry("elx_matmul_skinny",
+                         (_I,) * 6 + _OPS + (_P, _I, _I, _P))}
 
 #: the core for operands read in place in 16-byte pieces, by dtype (K8's
 #: too)
@@ -234,43 +214,36 @@ def _launch(core: str, a: torch.Tensor, b: torch.Tensor,
     c = torch.empty((M, N), dtype=out_dtype, device=a.device)
     if M == 0 or N == 0:
         return c
+    entry = CORES[core]
     if core == "skinny":
-        # the lean launch path: many calls of a few microseconds each
         cols, vec, S, kslice = skinny_plan(a, _sm_count(c.get_device()))
         ws = (torch.empty((S, M, N), dtype=c.dtype, device=c.device)
               if S > 1 else None)
-        launch(_SKINNY, c, DTYPE_CODE[a.dtype], cols, vec, M, N, K,
+        launch(entry, c, DTYPE_CODE[a.dtype], cols, vec, M, N, K,
                a.data_ptr(), a.stride(0), a.stride(1),
                b.data_ptr(), b.stride(0), b.stride(1),
                c.data_ptr(), c.stride(0), c.stride(1),
                ws.data_ptr() if ws is not None else None, S, kslice)
         return c
-    with torch.cuda.device(a.device):
-        if core == "fma":
-            fn = kernel_function(CORES[core], _ARGTYPES)
-            rc = fn(DTYPE_CODE[a.dtype], DTYPE_CODE[out_dtype], M, N, K,
-                    a.data_ptr(), a.stride(0), a.stride(1),
-                    b.data_ptr(), b.stride(0), b.stride(1),
-                    c.data_ptr(), c.stride(0), c.stride(1), current_stream(a))
-        else:
-            # each operand's layout: A M-major (unit stride sam), B N-major
-            # (unit stride sbn), or else K-major
-            a_mn = int(K > 0 and unit_dim(a) == 0)
-            b_mn = int(K > 0 and unit_dim(b) == 1)
-            ops = (a.data_ptr(), a.stride(0), a.stride(1), a_mn,
-                   b.data_ptr(), b.stride(0), b.stride(1), b_mn,
-                   c.data_ptr(), c.stride(0), c.stride(1))
-            if core == "wgmma":
-                fn = kernel_function(CORES[core], _WGMMA_ARGTYPES)
-                rc = fn(DTYPE_CODE[out_dtype], M, N, K, *ops,
-                        current_stream(a))
-            else:
-                # element-sized copies unless both operands are read in
-                # 16-byte pieces
-                fn = kernel_function(CORES[core], _ASYNC_ARGTYPES)
-                rc = fn(M, N, K, *ops, int(narrow_copies(a, b)),
-                        current_stream(a))
-    check_launch(rc, f"K1 ({core})")
+    if core == "fma":
+        launch(entry, c, DTYPE_CODE[a.dtype], DTYPE_CODE[out_dtype], M, N, K,
+               a.data_ptr(), a.stride(0), a.stride(1),
+               b.data_ptr(), b.stride(0), b.stride(1),
+               c.data_ptr(), c.stride(0), c.stride(1))
+        return c
+    # each operand's layout: A M-major (unit stride sam), B N-major (unit
+    # stride sbn), or else K-major
+    a_mn = int(K > 0 and unit_dim(a) == 0)
+    b_mn = int(K > 0 and unit_dim(b) == 1)
+    ops = (a.data_ptr(), a.stride(0), a.stride(1), a_mn,
+           b.data_ptr(), b.stride(0), b.stride(1), b_mn,
+           c.data_ptr(), c.stride(0), c.stride(1))
+    if core == "wgmma":
+        launch(entry, c, DTYPE_CODE[out_dtype], M, N, K, *ops)
+    else:
+        # element-sized copies unless both operands are read in 16-byte
+        # pieces
+        launch(entry, c, M, N, K, *ops, int(narrow_copies(a, b)))
     return c
 
 

@@ -20,7 +20,7 @@ product to bfloat16. A block that is not positive definite poisons every
 row from the diagonal tile down with NaN (the JAX kernel poisons some
 columns).
 
-Each has three routes; ``route(w, dtype)`` picks one from w and the dtype
+Each has two routes; ``route(w, dtype)`` picks one from w and the dtype
 alone, the same for K3a and K3b:
 
 - ``"cluster"`` (w <= ``CLUSTER_MAX_W[dtype]``: 512 in float32, 384 in
@@ -34,11 +34,6 @@ alone, the same for K3a and K3b:
   ``CLUSTER_MAX_W``, each on the cluster kernel, the history products and
   the inverse's off-diagonal blocks on K1's cores; for K3b, then L21 in
   one product.
-- ``"steps"`` (K3a) and ``"grid"`` (K3b): the first designs (three
-  launches a 32-wide step and a doubling inverse over an order padded to
-  ``padded_order(w)``; one cooperative launch with grid barriers between
-  the same steps). No path takes them: ``_launch`` and ``_tail_launch``
-  run them to be timed against the new routes.
 
 ``<wrapper>.launches_<route>`` count each route's launches,
 ``.launches`` their sum; ``reset_launches()`` zeroes them all. The
@@ -54,10 +49,7 @@ from typing import Tuple
 import torch
 
 from .. import trace
-from .common import DTYPE_CODE, Entry, cdiv, launch, on_cuda, raw_stream
-
-#: width of one factorization step in csrc/potrf.cu
-STEP = 32
+from .common import DTYPE_CODE, Entry, launch, on_cuda, raw_stream
 
 #: widest block the cluster route holds on chip (kClusterMaxW in
 #: csrc/potrf_cluster.cuh), and the diagonal blocks of the blocked route
@@ -67,24 +59,14 @@ CLUSTER_MAX_W = {torch.float32: 512, torch.float64: 384}
 #: csrc/potrf_cluster.cuh: 17 tiles of 32 x 32)
 EXCHANGE = 17 * 32 * 32
 
-ROUTES = ("cluster", "blocked", "steps")
-TAIL_ROUTES = ("cluster", "blocked", "grid")
-_ROUTE_CODE = {"steps": 0, "grid": 0, "cluster": 1, "blocked": 2}
+ROUTES = TAIL_ROUTES = ("cluster", "blocked")
+_ROUTE_CODE = {"cluster": 1, "blocked": 2}
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _BLOCK_INV = Entry("elx_potrf_block_inv",
                    (_I, _I, _I, _P, _L, _P, _P, _P, _P, _P))
 _TAIL = Entry("elx_potrf_panel_tail",
               (_I,) * 6 + (_P, _L, _P, _L, _L, _P, _P, _P, _P))
-
-
-def padded_order(w: int) -> int:
-    """The first design's working order: w rounded up to STEP * 2^p, so
-    each level of its doubling inverse pairs equal blocks."""
-    nblk = 1
-    while nblk * STEP < w:
-        nblk *= 2
-    return nblk * STEP
 
 
 def route(w: int, dtype: torch.dtype) -> str:
@@ -97,15 +79,10 @@ def route(w: int, dtype: torch.dtype) -> str:
 def workspace(tail: bool, rt: str, w: int, dtype: torch.dtype
               ) -> Tuple[int, int]:
     """(elements of dtype, int32 flags) of scratch a call on route ``rt``
-    needs, as the C entries split it: the first designs' work, inverse and
-    doubling products (W = padded_order(w)), K3b's inv(L11)^T (w x w) and
-    one flag; on the new routes the factor CTAs' exchange tiles
+    needs, as the C entries split it: the factor CTAs' exchange tiles
     (``EXCHANGE``), the blocked route's panel and product buffers (w x
-    CLUSTER_MAX_W each), K3b's inv(L11)^T, and five counters
+    CLUSTER_MAX_W each), K3b's inv(L11)^T (w x w), and five counters
     (csrc/potrf_cluster.cuh)."""
-    if rt in ("steps", "grid"):
-        W = padded_order(w)
-        return 2 * W * W + cdiv(W * W, 4) + (w * w if tail else 0), 1
     elems = EXCHANGE + (w * w if tail else 0) + (
         2 * w * CLUSTER_MAX_W[dtype] if rt == "blocked" else 0)
     return elems, 5

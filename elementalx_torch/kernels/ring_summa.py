@@ -33,21 +33,21 @@ from .. import trace
 from ..core.dmatrix import DistMatrix
 from ..core.redistribute import Copy
 from ..core.types import MC, MR, STAR, VC
-from .common import DTYPE_CODE, check_launch, current_stream, kernel_function, on_cuda
+from .common import DTYPE_CODE, Entry, launch, on_cuda
 from .matmul import FAST_CORE, tma_unit_dim
 
 #: ranks one launch can take (the kernel's pointer tables)
 MAX_RANKS = 64
 
-_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p)
-_FAST_ARGTYPES = _ARGTYPES[1:]
+#: the fast cores' arguments (p, slots, Mloc, N, K, then the tables of
+#: ranks and of A, B and C, and the stream); the FMA core's take the dtype
+#: first
+_FAST_ARGTYPES = (ctypes.c_int,) * 5 + (ctypes.c_void_p,) * 5
 
 #: the cores and the C entry of each
-CORES = {"wgmma": "elx_ring_summa_wgmma",
-         "fma_async": "elx_ring_summa_fma_async", "fma": "elx_ring_summa"}
+CORES = {"wgmma": Entry("elx_ring_summa_wgmma", _FAST_ARGTYPES),
+         "fma_async": Entry("elx_ring_summa_fma_async", _FAST_ARGTYPES),
+         "fma": Entry("elx_ring_summa", (ctypes.c_int,) + _FAST_ARGTYPES)}
 
 #: the fast cores' k-step (64 on the tensor cores, 32 on the FMA pipeline):
 #: kb = K/p must be a multiple of it, so that no k-step crosses two holders
@@ -168,17 +168,13 @@ def _launch(core: str, a_blocks: Sequence[torch.Tensor],
     def table(xs):
         return (ctypes.c_longlong * p)(*xs)
 
-    tables = (table(range(p)), table(x.data_ptr() for x in a_blocks),
-              table(x.data_ptr() for x in b_blocks),
-              table(x.data_ptr() for x in c_blocks), current_stream(a0))
-    with torch.cuda.device(a0.device):
-        if core == "fma":
-            fn = kernel_function(CORES[core], _ARGTYPES)
-            rc = fn(DTYPE_CODE[a0.dtype], p, p, Mloc, N, K, *tables)
-        else:
-            fn = kernel_function(CORES[core], _FAST_ARGTYPES)
-            rc = fn(p, p, Mloc, N, K, *tables)
-    check_launch(rc, f"K8 ({core})")
+    args = (p, p, Mloc, N, K, table(range(p)),
+            table(x.data_ptr() for x in a_blocks),
+            table(x.data_ptr() for x in b_blocks),
+            table(x.data_ptr() for x in c_blocks))
+    if core == "fma":
+        args = (DTYPE_CODE[a0.dtype],) + args
+    launch(CORES[core], a0, *args)
     return c_blocks
 
 

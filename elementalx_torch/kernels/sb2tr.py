@@ -36,15 +36,9 @@ from typing import Tuple
 import torch
 
 from .. import trace
-from .common import (
-    DTYPE_CODE,
-    check_launch,
-    current_stream,
-    kernel_function,
-    on_cuda,
-)
+from .common import DTYPE_CODE, Entry, launch, on_cuda
 
-_ARGTYPES = (ctypes.c_int,) * 6 + (ctypes.c_void_p,) * 4
+_ENTRY = Entry("elx_sb2tr", (ctypes.c_int,) * 6 + (ctypes.c_void_p,) * 4)
 
 ROUTES = ("cluster", "l2")
 _ROUTE_CODE = {"l2": 0, "cluster": 1}
@@ -131,11 +125,11 @@ def _launch(rt: str, a_band: torch.Tensor, b: int, csize: int = 0
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One K6 launch on route ``rt`` (for the cluster route with
     ``csize`` CTAs a cluster, ``cluster_size`` when 0), counted on that
-    route. ``sb2tr`` calls it with ``route``'s choice; tests and probes
-    hold routes and cluster sizes against each other with it."""
+    route. ``sb2tr`` calls it with ``route``'s choice on a checked band;
+    tests and probes hold routes and cluster sizes against each other with
+    it."""
     from ..lapack.sbr import chase_smax
 
-    _check(a_band, b)
     if rt == "cluster":
         csize = csize or cluster_size(b, a_band.dtype)
         if not 1 <= csize <= MAX_CLUSTER:
@@ -148,12 +142,8 @@ def _launch(rt: str, a_band: torch.Tensor, b: int, csize: int = 0
                        device=a_band.device)
     flags = torch.zeros((2 * n + 1,), dtype=torch.int32,
                         device=a_band.device)
-    fn = kernel_function("elx_sb2tr", _ARGTYPES)
-    with torch.cuda.device(a_band.device):
-        rc = fn(_ROUTE_CODE[rt], csize, DTYPE_CODE[a_band.dtype], n, b,
-                smax, work.data_ptr(), vout.data_ptr(), flags.data_ptr(),
-                current_stream(work))
-    check_launch(rc, "elx_sb2tr")
+    launch(_ENTRY, work, _ROUTE_CODE[rt], csize, DTYPE_CODE[a_band.dtype], n,
+           b, smax, work.data_ptr(), vout.data_ptr(), flags.data_ptr())
     trace.count(sb2tr, rt)
     return vout, torch.diagonal(work).clone(), torch.diagonal(work, -1).clone()
 

@@ -17,9 +17,6 @@ that ``route`` picks from dtype and layout alone:
   matrix whose base is 16-byte aligned it gives the ``"tma"`` core's bits
   on a copy with 16-byte rows.
 
-The first design, the scalar symv unit (``"unit"``), is no route's any
-more; ``_launch("unit", ...)`` still runs it, to be timed in turns.
-
 The header of ``csrc/symv.cu`` says what bounds them on the H100 (the
 bytes of the lower triangle) and how they sum without float atomics.
 
@@ -48,14 +45,12 @@ from .common import DTYPE_CODE, Entry, cooperative_grid, launch, on_cuda
 from .common import raw_stream
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_UNIT = Entry("elx_symv_lower", (_I, _I, _P, _L, _P, _P, _P, _I, _P))
 _TMA = Entry("elx_symv_lower_tma", (_I, _I, _P, _I, _L, _P, _P, _P, _I, _P))
 _ASYNC = Entry("elx_symv_lower_async",
                (_I, _I, _P, _I, _L, _I, _P, _P, _P, _I, _P))
 
 #: the cores and the C entry that sizes each one's grid
-CORES = {"tma": "elx_symv_tma_grid", "async": "elx_symv_async_grid",
-         "unit": "elx_symv_grid"}
+CORES = {"tma": "elx_symv_tma_grid", "async": "elx_symv_async_grid"}
 
 
 def symv_lower_plain(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -140,12 +135,9 @@ def _launch(core: str, A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if core == "tma":
         launch(_TMA, A, DTYPE_CODE[A.dtype], n, ptr - c0 * elem, c0,
                A.stride(0), v.data_ptr(), y.data_ptr(), ws.data_ptr(), G)
-    elif core == "async":
+    else:
         launch(_ASYNC, A, DTYPE_CODE[A.dtype], n, ptr, c0, A.stride(0),
                copy_bytes(A), v.data_ptr(), y.data_ptr(), ws.data_ptr(), G)
-    else:
-        launch(_UNIT, A, DTYPE_CODE[A.dtype], n, A.data_ptr(), A.stride(0),
-               v.data_ptr(), y.data_ptr(), ws.data_ptr(), G)
     return y
 
 

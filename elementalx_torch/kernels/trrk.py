@@ -26,13 +26,7 @@ import ctypes
 import torch
 
 from .. import trace
-from .common import (
-    DTYPE_CODE,
-    check_launch,
-    current_stream,
-    kernel_function,
-    on_cuda,
-)
+from .common import DTYPE_CODE, Entry, launch, on_cuda
 from .matmul import matmul_plain
 
 _SUPPORTED = {
@@ -42,9 +36,10 @@ _SUPPORTED = {
     (torch.bfloat16, torch.float32),
 }
 
-_ARGTYPES = ((ctypes.c_int,) * 6
-             + (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong) * 3
-             + (ctypes.c_double, ctypes.c_double, ctypes.c_void_p))
+_ENTRY = Entry("elx_masked_rank_k",
+               (ctypes.c_int,) * 6
+               + (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong) * 3
+               + (ctypes.c_double, ctypes.c_double, ctypes.c_void_p))
 
 
 def triangle_mask(M: int, N: int, lower: bool,
@@ -92,14 +87,11 @@ def masked_rank_k(lower: bool, alpha, a: torch.Tensor, b: torch.Tensor,
     N = b.shape[1]
     if M == 0 or N == 0:
         return out
-    fn = kernel_function("elx_masked_rank_k", _ARGTYPES)
-    with torch.cuda.device(a.device):
-        rc = fn(DTYPE_CODE[a.dtype], DTYPE_CODE[c.dtype], int(bool(lower)),
-                M, N, K, a.data_ptr(), a.stride(0), a.stride(1),
-                b.data_ptr(), b.stride(0), b.stride(1),
-                out.data_ptr(), out.stride(0), out.stride(1),
-                float(alpha), float(beta), current_stream(a))
-    check_launch(rc, "elx_masked_rank_k")
+    launch(_ENTRY, out, DTYPE_CODE[a.dtype], DTYPE_CODE[c.dtype],
+           int(bool(lower)), M, N, K, a.data_ptr(), a.stride(0), a.stride(1),
+           b.data_ptr(), b.stride(0), b.stride(1),
+           out.data_ptr(), out.stride(0), out.stride(1),
+           float(alpha), float(beta))
     trace.count(masked_rank_k)
     return out
 

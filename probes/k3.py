@@ -9,12 +9,11 @@ memory, spills) for the cluster kernel, then, float32, blocks of
 g g^T / w + 2 I:
 
 - K3a at w = 200, 512, 2048 on every route that takes the width (the
-  cluster route up to 512, the blocked route, the first design "steps")
-  and its plain version, timed in turns (A B C D D C B A, CUDA events),
-  beside cholesky_ex + solve_triangular and the chain floor (two cluster
-  barriers a 32-wide step, ``kernels/sync_probe.py``);
-- K3b at (16384, 512) and (8192, 2048) likewise (the first design is the
-  "grid" route);
+  cluster route up to 512, the blocked route) and its plain version,
+  timed in turns (A B C C B A, CUDA events), beside cholesky_ex +
+  solve_triangular and the chain floor (two cluster barriers a 32-wide
+  step, ``kernels/sync_probe.py``);
+- K3b at (16384, 512) and (8192, 2048) likewise;
 - the HPD step at n = 16384 (``entry()``), default and fused tail, best of
   three warm runs on the host clock;
 - where one cluster launch spends its time: the kernel's %globaltimer

@@ -87,9 +87,10 @@ def main():
     labels = lib.elx_latrd_probe_labels().decode().split("|")
     nstamps = lib.elx_latrd_probe_stamps()
     lib.elx_latrd_probe_set.argtypes = (ctypes.c_void_p,)
-    panel = lib.elx_latrd_panel
-    panel.argtypes = k5._ARGTYPES
-    panel.restype = ctypes.c_int
+    # K5's entry, bound to the probe build's function of the same name
+    panel = common.Entry(k5.PANEL.name, k5.PANEL.argtypes)
+    panel.fn = getattr(lib, panel.name)
+    panel.fn.argtypes, panel.fn.restype = panel.argtypes, ctypes.c_int
     grid_fn = lib.elx_latrd_grid
     grid_fn.argtypes = (ctypes.c_int, ctypes.c_void_p)
     grid_fn.restype = ctypes.c_int

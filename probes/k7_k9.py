@@ -9,9 +9,9 @@ It prints, after the card's name and power limit:
 
 1. nvcc's report (``-Xptxas -v``: registers, stack, spills, shared
    memory) for the K5, K7 and K9 kernels of the built library;
-2. K7 at n=16384 float32: the "unit" and "tma" cores in turns (unit,
-   tma, tma, unit; CUDA events) with their GB/s of the lower triangle
-   (n^2/2 words), against torch.mv on the full symmetric matrix; then
+2. K7 at n=16384 float32: the "tma" core in turns with torch.mv on the
+   full symmetric matrix (tma, mv, mv, tma; CUDA events), with its GB/s
+   of the lower triangle (n^2/2 words); then
    the "tma" core rebuilt with other ring sizes (ELX_SYMV_RING, bytes a
    block) and blocks per SM (ELX_SYMV_BLOCKS_PER_SM), each variant in
    turns with torch.mv and held against the plain version;
@@ -176,12 +176,9 @@ def main():
     ref = symv_lower_plain(A, v)
     scale = ref.abs().max().item()
     gbs = 2 * n * n / 1e6  # bytes of the triangle / 1e9, per ms
-    unit, tma = in_turns(lambda: k7("unit", A, v), lambda: k7("tma", A, v),
-                         20)
-    mv = time_ms(lambda: torch.mv(H, v), 20)
-    print(f"K7 n={n} f32: unit {unit:.4f} ms ({gbs / unit:.1f} GB/s), tma "
-          f"{tma:.4f} ms ({gbs / tma:.1f} GB/s); torch.mv on the full "
-          f"matrix {mv:.4f} ms; bound {n * n * 2 / 3.35e9:.4f} ms (the "
+    tma, mv = in_turns(lambda: k7("tma", A, v), lambda: torch.mv(H, v), 20)
+    print(f"K7 n={n} f32: tma {tma:.4f} ms ({gbs / tma:.1f} GB/s); "
+          f"torch.mv on the full matrix {mv:.4f} ms; bound {n * n * 2 / 3.35e9:.4f} ms (the "
           f"triangle's bytes)")
 
     libs = build_variants()

@@ -163,6 +163,52 @@ def test_right_solve_adjoint_lower():
     _close(out, ref)
 
 
+def _trsm_left_lower(grid, t, b):
+    return Et.Trsm(T.LEFT, T.LOWER, T.NORMAL, T.NON_UNIT, 1.0,
+                   Et.DistMatrix.from_global(t, grid=grid),
+                   Et.DistMatrix.from_global(b, grid=grid), blocksize=8)
+
+
+def _trsm_right(grid, t, b):
+    return Et.Trsm(T.RIGHT, T.LOWER, T.ADJOINT, T.NON_UNIT, 1.0,
+                   Et.DistMatrix.from_global(t, grid=grid),
+                   Et.DistMatrix.from_global(b.T, grid=grid), blocksize=8)
+
+
+def _right_adjoint_lower(grid, t, b):
+    from elementalx_torch.blas.trsm import _right_solve_adjoint_lower
+
+    return _right_solve_adjoint_lower(torch.tensor(t), torch.tensor(b.T), 8)
+
+
+@pytest.mark.parametrize("solve", [_trsm_left_lower, _trsm_right,
+                                   _right_adjoint_lower],
+                         ids=["left_lower", "right", "right_adjoint_lower"])
+def test_trsm_leaves_no_cycle(solve):
+    """A solve frees its triangle when it returns: with every collected
+    object kept in gc.garbage, a Trsm adds no tensor there (a recursion
+    through a closure that refers to itself would keep T and the diagonal
+    inverses until the next collection)."""
+    import gc
+
+    rng = np.random.default_rng(29)
+    t = _tri(rng, 44, True)
+    b = rng.standard_normal((44, 7))
+    grid = Et.Grid("cpu")
+    gc.collect()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.garbage.clear()
+        out = solve(grid, t, b)
+        gc.collect()
+        left = [x for x in gc.garbage if isinstance(x, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+    assert out is not None
+    assert left == []
+
+
 @pytest.mark.parametrize("n", [1, 16, 37, 100])
 @pytest.mark.parametrize("name", ["tri_inv_upper", "tri_inv_lower",
                                   "tri_inv_lower_unit"])

@@ -41,7 +41,6 @@ from elementalx_torch.kernels.getrf import (
 from elementalx_torch.kernels.latrd import latrd_panel, latrd_panel_plain
 from elementalx_torch.kernels.matmul import matmul, matmul_plain
 from elementalx_torch.kernels.potrf import (
-    padded_order,
     potrf_block_inv,
     potrf_block_inv_plain,
     potrf_panel_tail,
@@ -388,11 +387,6 @@ def test_potrf_plain_f64_contract(w):
     assert np.abs(l @ i.T - np.eye(w)).max() < 1e-12
 
 
-def test_padded_order():
-    assert [padded_order(w) for w in (1, 32, 33, 200, 512, 1056, 2048)] == \
-        [32, 32, 64, 256, 512, 2048, 2048]
-
-
 @pytest.mark.parametrize("w,dt,rt", [
     (1, torch.float32, "cluster"), (33, torch.float32, "cluster"),
     (200, torch.float32, "cluster"), (512, torch.float32, "cluster"),
@@ -424,8 +418,6 @@ def test_potrf_workspace(tail):
     f32, f64 = torch.float32, torch.float64
     own = 200 * 200 if tail else 0
     x = 17 * 32 * 32  # the factor CTAs' exchange tiles
-    assert k3.workspace(tail, "steps" if not tail else "grid", 200, f32) \
-        == (2 * 256 * 256 + 256 * 256 // 4 + own, 1)
     assert k3.workspace(tail, "cluster", 200, f32) == (x + own, 5)
     assert k3.workspace(tail, "blocked", 200, f64) \
         == (x + own + 2 * 200 * 384, 5)
@@ -1622,7 +1614,7 @@ def test_potrf_kernel_vs_plain(cuda, w, dt):
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("w", _K3_WIDTHS)
-@pytest.mark.parametrize("rt", ["cluster", "blocked", "steps"])
+@pytest.mark.parametrize("rt", ["cluster", "blocked"])
 def test_potrf_routes_vs_plain(cuda, rt, w, dt):
     """Each K3a route against the plain version (tolerances as above):
     exact zeros outside the triangles, NaN in both outputs for a block
@@ -2175,12 +2167,12 @@ def test_potrf_panel_tail_kernel_vs_plain(cuda, Mt, w, low, dt):
     (1000, 200, torch.float32), (2100, 512, torch.float32),
     (700, 33, torch.float64), (2000, 600, torch.float32),
     (900, 400, torch.float64)])
-@pytest.mark.parametrize("rt", ["cluster", "blocked", "grid"])
+@pytest.mark.parametrize("rt", ["cluster", "blocked"])
 def test_potrf_panel_tail_routes_vs_plain(cuda, rt, Mt, w, dt):
     """Each K3b route against the plain version (tolerances as above), with
     strided panel views, the same bits on a second run, L11 equal to K3a's
-    on the same route (cluster and blocked), and NaN in every row for a
-    block that is not positive definite."""
+    on the same route, and NaN in every row for a block that is not
+    positive definite."""
     k3 = importlib.import_module("elementalx_torch.kernels.potrf")
 
     g = torch.Generator(device=cuda).manual_seed(w)
@@ -2200,10 +2192,9 @@ def test_potrf_panel_tail_routes_vs_plain(cuda, rt, Mt, w, dt):
     rtol = 1e-12 if dt == torch.float64 else 1e-5
     assert (out - ref).abs().max().item() <= rtol * ref.abs().max().item()
     assert torch.equal(out, again)
-    if rt != "grid":
-        l11, _ = k3._launch(rt, sym)
-        torch.cuda.synchronize()
-        assert torch.equal(out[:w], l11)
+    l11, _ = k3._launch(rt, sym)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:w], l11)
     bad = k3._tail_launch(rt, -sym, pan, 0, False)
     torch.cuda.synchronize()
     assert bool(bad.isnan().all())
@@ -2332,26 +2323,6 @@ def test_symv_async_equals_tma_on_aligned_copy(cuda, n, pad, dt):
         before[0] + 1, before[1] + 1)
     assert bool(torch.isfinite(y).all())
     assert torch.equal(y, y_tma)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
-def test_symv_unit_core_still_runs(cuda, dt):
-    """The first design ("unit"), which no route takes any more, still
-    runs through _launch: against the plain version within 1e-5 (float32)
-    or 1e-12 (float64) of max|y|, NaN above the diagonal kept out of y."""
-    from elementalx_torch.kernels.symv import _launch
-
-    g = torch.Generator(device=cuda).manual_seed(43)
-    A = torch.randn((1001, 1001), generator=g, device=cuda).to(dt)
-    v = torch.randn((1001,), generator=g, device=cuda).to(dt)
-    ref = symv_lower_plain(A, v)
-    iu = torch.triu_indices(1001, 1001, 1, device=cuda)
-    A[iu[0], iu[1]] = float("nan")
-    y = _launch("unit", A, v)
-    torch.cuda.synchronize()
-    rtol = 1e-5 if dt == torch.float32 else 1e-12
-    assert (y - ref).abs().max().item() <= rtol * ref.abs().max().item()
 
 
 @pytest.mark.cuda
