@@ -103,7 +103,9 @@ Phases (each raises on failure, so the script exits non-zero):
  11. the HermitianGenDefEig slice: ``gen_def_eig_step`` at n=8192,
      float32, AXBX, with the fused tail, gated on the scaled residual,
      the B-orthogonality and the launch counts, with the residual split
-     by stage in float64 (HermitianEig's own residual on C gated too);
+     by stage in float64 (HermitianEig's own residual on C gated too),
+     gated on launching K10, whose inverses of the step's L's 512-blocks
+     are held against the plain chain's and float64 inverses;
      and all three pencils at n=300 in float64 held against the same step
      on the CPU;
  12. K9 (axpby, scale, hadamard, fill, transpose) against its plain
@@ -114,7 +116,19 @@ Phases (each raises on failure, so the script exits non-zero):
      checked in bfloat16, float64, a ragged 1000 x 777 case with .mT
      inputs, and the conjugate transpose of a real input; then the host's
      time per axpby call at 16384 x 256 (1000 unsynchronised calls)
-     against torch.add, gated on one device kernel a call;
+     against torch.add, gated on one device kernel a call; and K10 (the
+     triangular inverse) against its plain version (the JAX package's
+     chain of batched products) at the paths' shapes in float32 and
+     float64 (the QR panel's 512 upper, read row- and column-major, LU's
+     1024 and 512 unit lower triangles, Trsm's 32 diagonal 512-blocks of a
+     16384^2 triangle as one strided view, build_wy_T's 128, and 2048
+     and tridiag_eig's 8192, which the wrapper inverts in blocks of 1024
+     joined by K1), gated on n eps of the plain result and NaN outside
+     the triangle never reaching X, in turns with the chain and with the
+     library's torch.linalg.solve_triangular, with its bound; then on
+     real triangles (a Cholesky factor of condition 1e3, CholeskyQR2's R,
+     LU's unit L), its errors within 4x the chain's; the HPD, LU and
+     least-squares steps (phases 4, 6 and 13) are gated on launching it;
  13. the least-squares slice: every public function of lapack/qr.py,
      lq.py, gqr.py and euclidean_min.py at about n=300 in float64 held
      against the same call on the CPU; ``least_squares_step`` at
@@ -270,6 +284,7 @@ def main() -> None:
         masked_rank_k,
         masked_rank_k_plain,
     )
+    from elementalx_torch.kernels.trinv import leaves, trinv, trinv_plain
     from elementalx_torch.lapack import condense, qr, sbr, tridiag_eig
     from elementalx_torch.lapack.hermitian_eig import (
         SBR_AUTO_BAND,
@@ -352,6 +367,9 @@ def main() -> None:
 
     def k9_counts():
         return {name: getattr(k9, name).launches for name in k9_entries}
+
+    def k10_reset():
+        trinv.launches = 0
 
     # ---- 1. set-up ----
     smi = subprocess.run(
@@ -729,6 +747,7 @@ def main() -> None:
     k1_reset()
     k3_reset()
     k9_reset()
+    k10_reset()
     t0 = time.perf_counter()
     x, nrm = step(a, b)
     sync()
@@ -736,7 +755,7 @@ def main() -> None:
     launches = {"K1": matmul.launches, "K1 cores": k1_counts(),
                 "K3a": potrf_block_inv.launches,
                 "K3a routes": k3a_routes(),
-                "K9": k9_counts()}
+                "K9": k9_counts(), "K10": trinv.launches}
     t0 = time.perf_counter()
     step(a, b)
     sync()
@@ -749,7 +768,8 @@ def main() -> None:
              / (eps * n * b.double().abs().max())).item()
     require(resid < 100, f"scaled residual {resid} >= 100")
     require(launches["K1"] > 0 and launches["K3a"] == 32
-            and launches["K3a routes"]["cluster"] == 32,
+            and launches["K3a routes"]["cluster"] == 32
+            and launches["K10"] > 0,
             f"the main path did not launch every kernel (32 K3a panels on "
             f"the cluster route): {launches}")
     require(launches["K9"]["transpose"] == 0,
@@ -766,6 +786,7 @@ def main() -> None:
     k1_reset()
     k3_reset()
     k9_reset()
+    k10_reset()
     t0 = time.perf_counter()
     x64, nrm64 = step(a64, b64)
     sync()
@@ -773,7 +794,7 @@ def main() -> None:
     hpd64_launches = {"K1": matmul.launches, "K1 cores": k1_counts(),
                       "K3a": potrf_block_inv.launches,
                       "K3a routes": k3a_routes(),
-                      "K9": k9_counts()}
+                      "K9": k9_counts(), "K10": trinv.launches}
     t0 = time.perf_counter()
     step(a64, b64)
     sync()
@@ -793,7 +814,8 @@ def main() -> None:
             f"FP64 tensor cores: {cores64}")
     # its 512-wide panels take K3a's blocked route in float64
     require(hpd64_launches["K3a"] == 32
-            and hpd64_launches["K3a routes"]["blocked"] == 32,
+            and hpd64_launches["K3a routes"]["blocked"] == 32
+            and hpd64_launches["K10"] > 0,
             f"float64 HPD step: not 32 K3a panels on the blocked route: "
             f"{hpd64_launches}")
     print(f"slice HPDSolve + residual Gemm + Nrm2, n={n} nrhs={nrhs} f64: "
@@ -918,6 +940,7 @@ def main() -> None:
     k1_reset()
     k4_reset()
     k9_reset()
+    k10_reset()
     t0 = time.perf_counter()
     x, nrm = linear_solve_step(a, b)
     sync()
@@ -926,7 +949,7 @@ def main() -> None:
                    "K4": getrf_panel.launches,
                    "K4 routes": {r: getattr(getrf_panel, f"launches_{r}")
                                  for r in ("cluster", "grid")},
-                   "K9": k9_counts()}
+                   "K9": k9_counts(), "K10": trinv.launches}
     t0 = time.perf_counter()
     linear_solve_step(a, b)
     sync()
@@ -940,7 +963,8 @@ def main() -> None:
                                     * xd.abs().sum(1).max())).item()
     hpd_style = (r.abs().max() / (eps * n * bd.abs().max())).item()
     require(berr < 100, f"LU slice: scaled backward error {berr} >= 100")
-    require(lu_launches["K1"] > 0 and lu_launches["K4"] > 0,
+    require(lu_launches["K1"] > 0 and lu_launches["K4"] > 0
+            and lu_launches["K10"] > 0,
             f"the LU path did not launch every kernel: {lu_launches}")
     require(lu_launches["K4 routes"]["cluster"] == lu_launches["K4"],
             f"a K4 panel of the LU path left the cluster route: "
@@ -1760,6 +1784,7 @@ def main() -> None:
         k3_reset()
         latrd_panel.launches = sb2tr.launches = 0
         k9_reset()
+        k10_reset()
         t0 = time.perf_counter()
         wg, xg, rg = gen_def_eig_step(ga, gb, "AXBX")
         sync()
@@ -1769,7 +1794,7 @@ def main() -> None:
                        "K3b": potrf_panel_tail.launches,
                        "K3b routes": k3b_routes(),
                        "K5": latrd_panel.launches, "K6": sb2tr.launches,
-                       "K9": k9_counts()}
+                       "K9": k9_counts(), "K10": trinv.launches}
     finally:
         os.environ.pop("ELX_PALLAS_POTRF", None)
     resid = rg.item()
@@ -1789,6 +1814,8 @@ def main() -> None:
             f"the GenDefEig path did not launch its kernels: {gd_launches}")
     require(gd_launches["K9"]["transpose"] == 0,
             f"a K9 transpose on the GenDefEig path: {gd_launches}")
+    require(gd_launches["K10"] > 0,
+            f"no K10 launch on the GenDefEig path: {gd_launches}")
     print(f"slice HermitianGenDefEig AXBX + residual Gemms, n={ng} f32 "
           f"(fused tail): {gd_ms:.1f} ms; scaled residual max|AX-BXW|/(eps n"
           f" (max|A| + max|w| max|B|) max|X|) = {resid:.4f}; "
@@ -1800,6 +1827,40 @@ def main() -> None:
     #   AX - BXW = (A - L C L^T) X + L (CZ - ZW) + (L L^T - B) X W,
     # the reduction's, the eigensolver's and the Cholesky's share, each in
     # the units of the scaled residual.
+    # K10 on the triangles this step hands Trsm: L's 512 x 512 diagonal
+    # blocks, inverted as Trsm inverts them (one strided view, through
+    # .mT), and by the plain chain on the same view; each block's
+    # ||X L11 - I||_inf / (n eps ||X||_inf ||L11||_inf) and forward error
+    # against its float64 inverse, the largest over the blocks.
+    nbg = 512
+    Lg = GL.data[:ng, :ng]
+    s0, s1 = Lg.stride()
+    Lv = Lg.as_strided((ng // nbg, nbg, nbg), (nbg * (s0 + s1), s0, s1),
+                       Lg.storage_offset())
+    Lvd = Lv.double().tril()
+    e512 = torch.eye(nbg, dtype=torch.float64, device=dev)
+    exact = torch.linalg.solve_triangular(Lvd, e512.expand_as(Lvd),
+                                          upper=False)
+
+    def gd_errors(X):
+        Xd = X.double()
+        inf = lambda m: m.abs().sum(-1).amax(-1)  # noqa: E731
+        res = inf(Xd @ Lvd - e512) / (nbg * eps * inf(Xd) * inf(Lvd))
+        fwd = (Xd - exact).abs().amax((-2, -1)) / exact.abs().amax((-2, -1))
+        return res.max().item(), fwd.max().item()
+
+    k10_gd = gd_errors(trinv(Lv.mT).mT)
+    chain_gd = gd_errors(trinv_plain(Lv.mT).mT)
+    print(f"K10 on GenDefEig's L (n={ng} f32, {ng // nbg} diagonal blocks of "
+          f"{nbg}, cond up to {torch.linalg.cond(Lvd).max().item():.3e}): "
+          f"max ||X L11 - I|| / (n eps ||X|| ||L11||), max forward error: "
+          f"kernel {k10_gd[0]:.3e}, {k10_gd[1]:.3e}; chain {chain_gd[0]:.3e},"
+          f" {chain_gd[1]:.3e}")
+    require(k10_gd[0] < 1 and k10_gd[0] <= 4 * chain_gd[0]
+            and k10_gd[1] <= 4 * chain_gd[1],
+            f"K10 on GenDefEig's L: {k10_gd} against the chain's {chain_gd}")
+    del Lg, Lv, Lvd, exact, e512
+
     Ld = GL.data[:ng, :ng].double().tril()
     Cd = GC.data[:ng, :ng].double()
     Cd = Cd.tril() + Cd.tril(-1).mT
@@ -1989,6 +2050,168 @@ def main() -> None:
           f"{full_ms:.4f} ms beside fill's row")
     del x, y
 
+    # ---- K10 against its plain version (phase 12) ----
+    # Upper triangles with entries N(0, 1/n^2) above a diagonal in [1, 2)
+    # (inv(U) well conditioned) and NaN below it, which K10 never reads
+    # (nor a unit triangle's NaN diagonal), against the plain chain on the
+    # clean triangle: within n eps of its largest entry (both are within n
+    # eps |X||U| of the inverse), exact zeros below the diagonal; timed in
+    # turns with the chain and with the library's batched triangular solve
+    # against I (torch.linalg.solve_triangular, cuBLAS trsm), beside the
+    # bound (n^3/3 operations a matrix at 67 TFLOP/s, FP32 FMA or the FP64
+    # tensor cores; U's triangle and X at 3.35 TB/s).
+    def k10_case(batch, n, dt, layout):
+        """(the argument trinv is given, unit, clean triangles)."""
+        u = torch.randn((batch, n, n), generator=gen, device=dev,
+                        dtype=torch.float64) / n
+        u = torch.triu(u, 1) + torch.diag_embed(1 + torch.rand(
+            (batch, n), generator=gen, device=dev, dtype=torch.float64))
+        clean = u.to(dt)
+        below = torch.ones(n, n, dtype=torch.bool, device=dev).tril(-1)
+        if layout == "trsm":
+            big = torch.full((batch * n, batch * n), float("nan"), dtype=dt,
+                             device=dev)
+            s0, s1 = big.stride()
+            view = big.as_strided((batch, n, n), (n * (s0 + s1), s0, s1))
+            view.copy_(clean.masked_fill(below, float("nan")))
+            return view, False, clean
+        u = clean.masked_fill(below, float("nan"))
+        if layout == "unit":
+            u.diagonal(dim1=-2, dim2=-1).fill_(float("nan"))
+            clean = clean.clone()
+            clean.diagonal(dim1=-2, dim2=-1).fill_(1)
+        if layout in ("unit", "col-major"):
+            # a lower triangle (LU's L, Cholesky's L^T) read through .mT
+            return u.mT.contiguous().mT, layout == "unit", clean
+        return u, False, clean
+
+    def k10_calls(n):
+        """K10's launches for one triangle of order n (kernels/trinv.py)."""
+        if n <= 1024:
+            return 1
+        nb, q = leaves(n)
+        return 1 + (q * nb < n)
+
+    k10_main = k10_lib_ms = None
+    for dt in (torch.float32, torch.float64):
+        for label, batch, n10, layout in (
+                ("QR panel 512", 1, 512, "row-major"),
+                ("QR panel 512 (R1 = L1.mT)", 1, 512, "col-major"),
+                ("LU 1024 unit", 1, 1024, "unit"),
+                ("LU 512 unit", 1, 512, "unit"),
+                ("Trsm 32 x 512 view", 32, 512, "trsm"),
+                ("build_wy_T 128", 1, 128, "row-major"),
+                ("build_wy_T 64 x 128", 64, 128, "row-major"),
+                ("2048 (blocks of 1024)", 1, 2048, "row-major"),
+                ("tridiag_eig 8192 (blocks of 1024)", 1, 8192, "col-major")):
+            u, unit, clean = k10_case(batch, n10, dt, layout)
+            eye10 = torch.eye(n10, dtype=dt, device=dev)
+            kern = lambda: trinv(u, unit)  # noqa: E731
+            plain = lambda: trinv_plain(clean)  # noqa: E731
+            lib = lambda: torch.linalg.solve_triangular(  # noqa: E731
+                u, eye10, upper=True, unitriangular=unit)
+            k10_reset()
+            out, ref = kern(), plain()
+            sync()
+            launched = trinv.launches
+            eps10 = torch.finfo(dt).eps
+            err = ((out.double() - ref.double()).abs().max()
+                   / ref.double().abs().max()).item()
+            require(bool(torch.isfinite(out).all()) and err <= n10 * eps10
+                    and torch.equal(torch.tril(out, -1),
+                                    torch.zeros_like(out)),
+                    f"K10 {label} {dt}: max|kernel - plain| / max|plain| "
+                    f"{err} (n eps {n10 * eps10}), or NaN or a nonzero "
+                    f"below the diagonal")
+            require(launched == k10_calls(n10),
+                    f"K10 {label} {dt}: {launched} launches a call")
+            iters10 = 5 if n10 > 2048 else 20
+            ms, plain_ms = time_pair(kern, plain, iters10)
+            ms2, lib_ms = time_pair(kern, lib, iters10)
+            bound = roofline(batch * n10 ** 3 / 3,
+                             batch * 1.5 * n10 * n10 * out.element_size(),
+                             PEAK_FP32 if dt == torch.float32
+                             else PEAK_FP64_TC)
+            if (label, dt) == ("QR panel 512", torch.float32):
+                k10_main = (err, ms, plain_ms, bound)
+                k10_lib_ms = lib_ms
+            print(f"K10 {label} {str(dt)[6:]}: max|kernel - plain| / "
+                  f"max|plain| {err:.3e}; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms (events over {iters10} calls, in "
+                  f"turns; the plain chain is host-bound), kernel "
+                  f"{ms2:.4f} ms, library solve_triangular {lib_ms:.4f} ms "
+                  f"(in turns), bound {bound[0]:.5f} ms ({bound[1]}); "
+                  f"{launched} launch(es) a call")
+            del u, clean, out, ref, eye10
+
+    # K10 on triangles the paths hand it, against the chain on the same
+    # card: the Cholesky factor L^T of an SPD matrix of condition 1e6,
+    # CholeskyQR2's R of a 4n x n matrix of condition 1e3, LU's unit L
+    # through .mT. Errors in float64, ||XU - I||_inf and ||UX - I||_inf
+    # over n eps ||X||_inf ||U||_inf and the forward error against the
+    # float64 inverse of U as rounded; each within 4x the chain's.
+    for dt in (torch.float32, torch.float64):
+        eps10 = torch.finfo(dt).eps
+        for kind in ("chol", "cholqr2", "lu"):
+            n10 = 512
+            g = torch.Generator().manual_seed(10)
+            if kind == "chol":
+                q, _ = torch.linalg.qr(torch.randn(
+                    (n10, n10), generator=g, dtype=torch.float64))
+                a = (q * torch.logspace(0, -6, n10, dtype=torch.float64)) \
+                    @ q.mT
+                U = torch.linalg.cholesky(((a + a.mT) / 2).to(dt).to(dev)).mT
+                unit = False
+            elif kind == "cholqr2":
+                uq, _ = torch.linalg.qr(torch.randn(
+                    (4 * n10, n10), generator=g, dtype=torch.float64))
+                vq, _ = torch.linalg.qr(torch.randn(
+                    (n10, n10), generator=g, dtype=torch.float64))
+                a = ((uq * torch.logspace(0, -3, n10, dtype=torch.float64))
+                     @ vq.mT).to(dt).to(dev)
+                r1 = torch.linalg.cholesky(a.mT @ a).mT
+                q1 = torch.linalg.solve_triangular(r1, a, upper=True,
+                                                   left=False)
+                U = torch.triu(torch.linalg.cholesky(q1.mT @ q1).mT @ r1)
+                unit = False
+            else:
+                U = torch.linalg.lu(torch.randn(
+                    (n10, n10), generator=g, dtype=torch.float64).to(dt).to(
+                    dev))[1].mT.contiguous()
+                U.diagonal().fill_(float("nan"))
+                unit = True
+            Ud = torch.triu(U.double(), 1 if unit else 0)
+            if unit:
+                Ud.diagonal().fill_(1)
+            exact = torch.linalg.solve_triangular(
+                Ud, torch.eye(n10, dtype=torch.float64, device=dev),
+                upper=True)
+
+            def k10_errors(X):
+                Xd = X.double()
+                e10 = torch.eye(n10, dtype=torch.float64, device=dev)
+                den = n10 * eps10 * Xd.abs().sum(1).max() \
+                    * Ud.abs().sum(1).max()
+                return [(Xd @ Ud - e10).abs().sum(1).max().item()
+                        / den.item(),
+                        (Ud @ Xd - e10).abs().sum(1).max().item()
+                        / den.item(),
+                        ((Xd - exact).abs().max()
+                         / exact.abs().max()).item()]
+
+            got = k10_errors(trinv(U, unit))
+            want = k10_errors(trinv_plain(U, unit))
+            require(got[0] < 1 and got[1] < 1
+                    and all(a <= 4 * b for a, b in zip(got, want)),
+                    f"K10 on {kind} {dt}: errors {got} against the chain's "
+                    f"{want}")
+            print(f"K10 on a real triangle, {kind} n={n10} {str(dt)[6:]} "
+                  f"(cond {torch.linalg.cond(Ud).item():.3e}): ||XU-I||, "
+                  f"||UX-I|| / (n eps ||X|| ||U||), forward error: kernel "
+                  f"{got[0]:.3e}, {got[1]:.3e}, {got[2]:.3e}; chain "
+                  f"{want[0]:.3e}, {want[1]:.3e}, {want[2]:.3e}")
+            del U, Ud, exact
+
     # ---- the LU step's profile (phase 6's problem) ----
     # One warm LU step under torch.profiler: K4's share of the device time
     # (its group kernels, the used-row reset and its rank-32 updates, the
@@ -2107,6 +2330,7 @@ def main() -> None:
         sync()
         k1_reset()
         k9_reset()
+        k10_reset()
         qr.cholqr_panels.update(fast=0, slow=0, short=0)
         qr.applyq_blocks.update(stored=0, rebuilt=0)
         t0 = time.perf_counter()
@@ -2114,7 +2338,7 @@ def main() -> None:
         sync()
         ms = (time.perf_counter() - t0) * 1e3
         return out, ms, {"K1": matmul.launches, "K1 cores": k1_counts(),
-                         "K9": k9_counts(),
+                         "K9": k9_counts(), "K10": trinv.launches,
                          "cholqr": dict(qr.cholqr_panels),
                          "applyq": dict(qr.applyq_blocks)}
 
@@ -2132,7 +2356,7 @@ def main() -> None:
         berr = backward_error(a, x, b)
         require(berr < 100, f"LS {label}: scaled backward error {berr}")
         require(lc["K1"] > 0 and lc["K9"]["axpby"] > 0
-                and lc["cholqr"]["fast"] > 0,
+                and lc["cholqr"]["fast"] > 0 and lc["K10"] > 0,
                 f"LS {label}: the path did not take its kernels: {lc}")
         extra = ""
         if m13 < n13:
@@ -2656,6 +2880,16 @@ def main() -> None:
         for name, line in (("axpby", 56), ("scale", 67), ("hadamard", 78),
                            ("fill", 88), ("transpose", 115))
     ]
+    # K10's launches on the paths that read them (two Trsm an HPD step,
+    # LU's slab and panel inverses, QR's four a CholeskyQR2 panel)
+    k10_launches = (launches["K10"] + hpd64_launches["K10"]
+                    + lu_launches["K10"]
+                    + sum(r["K10"] for r in ls_runs.values()))
+    kernels.append(row(
+        "K10 triangular inverse (trinv; a stripe of columns a CTA, QR panel "
+        "512 f32)", csrc + "trinv.cu",
+        "none: elementalx/blas/trinv.py is plain XLA", k10_launches,
+        k10_main, k10_lib_ms))
     print(json.dumps({"off_path_kernels": off_path}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -36,4 +36,5 @@ from .symv import (  # noqa: F401
     symv_lower_plain,
     symv_lower_trailing,
 )
+from .trinv import trinv, trinv_plain  # noqa: F401
 from .trrk import masked_rank_k, masked_rank_k_plain  # noqa: F401

@@ -152,9 +152,20 @@ def _tridiag_eig(d: torch.Tensor, e: torch.Tensor, b0: torch.Tensor,
                  ortho_passes: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
     """``tridiag_eig`` from the given start block b0 (n, n), row i the
     start vector of eigenvalue i."""
+    # A float32 tridiagonal is solved in float64 and rounded at the end
+    # (the JAX package's solver runs in float32): float32 inverse
+    # iteration leaves residuals of several eps n max|w| on T
+    # (max|TZ - ZW| / (eps n max|w|) 7.65 against 0.0002 in float64 for
+    # GenDefEig's n = 1024 tridiagonal at seed 0), which GenDefEig's
+    # back-substitution multiplies past its gate. The bisection keeps
+    # float32's depth (45 bits of the Gershgorin span).
+    out_dt = d.dtype
+    iters = 0
+    if out_dt == torch.float32:
+        d, e, iters = d.double(), e.double(), -(-40 // 3) + 1
     n = d.shape[0]
     dev, dt = d.device, d.dtype
-    w = tridiag_eigvalsh(d, e)
+    w = tridiag_eigvalsh(d, e, iters)
     eps = torch.finfo(dt).eps
     tnorm = torch.maximum(_tmax(d), _tmax(e))
     tn1 = torch.clamp(tnorm, min=1.0)
@@ -173,33 +184,30 @@ def _tridiag_eig(d: torch.Tensor, e: torch.Tensor, b0: torch.Tensor,
                  invit_steps)                           # rows: eigvecs
 
     # clusters are contiguous in the ascending order, so the masked Gram
-    # is block diagonal and one masked CholeskyQR orthonormalises them all.
-    # It runs in float64 for a float32 input (the JAX package's runs in
-    # float32): a dense cluster's inverse-iteration vectors are so nearly
-    # dependent that the float32 Gram loses their orthogonality or fails
-    # to factor, and a failed factorization skips the pass (GenDefEig's
-    # tridiagonal at n = 8192, seed 6, from the JAX start vectors:
-    # max|Z^T Z - I| = 884 eps n with a float32 QR, the JAX package's
-    # 0.02 by the luck of its rounding, 0.0075 in float64).
+    # is block diagonal and one masked CholeskyQR orthonormalises them all
+    # (in float64 also for a float32 input: a dense cluster's
+    # inverse-iteration vectors are so nearly dependent that a float32
+    # Gram loses their orthogonality or fails to factor, and a failed
+    # factorization skips the pass; GenDefEig's tridiagonal at n = 8192,
+    # seed 6, from the JAX start vectors: max|Z^T Z - I| = 884 eps n with
+    # a float32 QR, the JAX package's 0.02 by the luck of its rounding).
     ctol = max(16 * n * eps, 4.0 / n) * tn1
     newc = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
                       torch.diff(w) > ctol])
     cid = torch.cumsum(newc.to(torch.int32), 0)
     Mcl = cid[:, None] == cid[None, :]
-    qdt = torch.float64 if dt == torch.float32 else dt
-    eye = torch.eye(n, dtype=qdt, device=dev)
+    eye = torch.eye(n, dtype=dt, device=dev)
 
     def cluster_qr(Z, reg):
-        Zq = Z.to(qdt)
-        G = Zq.mT @ Zq
-        Gm = torch.where(Mcl, G, torch.zeros((), dtype=qdt, device=dev)) \
+        G = Z.mT @ Z
+        Gm = torch.where(Mcl, G, torch.zeros((), dtype=dt, device=dev)) \
             + reg * eye
         Lc, info = torch.linalg.cholesky_ex(Gm)
         # a failed factorization skips the orthonormalization rather than
         # poisoning Z; decided on the device
         ok = (info == 0) & torch.all(torch.isfinite(Lc))
         Lc = torch.where(ok, Lc, eye)
-        return (Zq @ tri_inv_lower(Lc).mT).to(dt)
+        return Z @ tri_inv_lower(Lc).mT
 
     Z = cluster_qr(Z.mT, 16 * n * eps).mT
     # second round from Rayleigh-refined shifts
@@ -230,7 +238,7 @@ def _tridiag_eig(d: torch.Tensor, e: torch.Tensor, b0: torch.Tensor,
     clamp = 256 * eps * tn1
     w_ref = torch.minimum(torch.maximum(w_ref, w - clamp), w + clamp)
     order = torch.argsort(w_ref)
-    return w_ref[order], Z[:, order]
+    return w_ref[order].to(out_dt), Z[:, order].to(out_dt)
 
 
 def tridiag_eig(d: torch.Tensor, e: torch.Tensor, invit_steps: int = 1,

@@ -4,7 +4,7 @@ copies of the port, on one card.
 Usage, from the root of the repository, on a machine with an NVIDIA GPU:
 
     python3 probes/gendefeig_seeds.py ROOT [ROOT ...] [--stages] \
-        [--dump-de] [--seeds 0 1 2]
+        [--dump-de] [--eig] [--seeds 0 1 2]
 
 Each ROOT holds an ``elementalx_torch`` package (for example ``.`` and an
 unpacked ``git archive`` of the parent commit in a directory that
@@ -36,6 +36,10 @@ encoded, cut into pieces of 8000 characters (join the pieces of a name
 in order, decode, decompress), and then the orthogonality of
 ``tridiag_eig``'s vectors of that (d, e).
 
+Each seed's line also gives the step's wall time (synchronised host
+clock). With ``--eig``, each ROOT then times ``hermitian_eig_step`` on
+``make_eig_problem(8192)`` (float32) twice and prints its scaled residual.
+
 After the card's name and power limit, one line per (ROOT, seed).
 """
 
@@ -46,11 +50,13 @@ CHILD = r'''
 import base64
 import os
 import sys
+import time
 import zlib
 sys.path.insert(0, sys.argv[1])
 import torch
 import elementalx_torch as Et
-from elementalx_torch.entry import gen_def_eig_step, make_gendef_problem
+from elementalx_torch.entry import (gen_def_eig_step, hermitian_eig_step,
+                                    make_eig_problem, make_gendef_problem)
 from elementalx_torch.lapack import condense, sbr, tridiag_eig
 
 dev = torch.device("cuda", 0)
@@ -59,6 +65,7 @@ eps = torch.finfo(torch.float32).eps
 os.environ["ELX_PALLAS_POTRF"] = "1"
 stages = "--stages" in sys.argv
 dump = "--dump-de" in sys.argv
+eig = "--eig" in sys.argv
 
 
 def orth(q):
@@ -74,8 +81,11 @@ for seed in (int(a) for a in sys.argv[2:] if not a.startswith("--")):
     GB = Et.DistMatrix.from_global(gb, grid=Et.Grid(dev))
     GL = Et.Cholesky(Et.LOWER, GB)
     GC = Et.TwoSidedTrsm(Et.LOWER, Et.NON_UNIT, GA, GL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     wg, xg, rg = gen_def_eig_step(ga, gb, "AXBX")
     torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
     Ld = GL.data[:ng, :ng].double().tril()
     Cd = GC.data[:ng, :ng].double()
     Cd = Cd.tril() + Cd.tril(-1).mT
@@ -94,8 +104,8 @@ for seed in (int(a) for a in sys.argv[2:] if not a.startswith("--")):
     print(f"{sys.argv[1]} seed {seed}: scaled residual {rg.item():.4f} "
           f"(gate 100), B-orthogonality {borth:.4f}; eigensolver share = "
           f"HermitianEig's residual on C {r_std:.4f} x growth through L "
-          f"{grow:.4f} x units {units:.4f} = {r_std * grow * units:.4f}",
-          flush=True)
+          f"{grow:.4f} x units {units:.4f} = {r_std * grow * units:.4f}; "
+          f"step {step_ms:.1f} ms", flush=True)
     if dump:
         fact = condense.HermitianTridiag(
             Et.LOWER, Et.DistMatrix.from_global(Cd.float(), grid=Et.Grid(dev)))
@@ -125,13 +135,24 @@ for seed in (int(a) for a in sys.argv[2:] if not a.startswith("--")):
         del c32, fact, zt, q, sf, zs
     del Ld, Cd, ad, bd, xd, wd, zd, R, ga, gb, wg, xg
     torch.cuda.empty_cache()
+
+if eig:
+    h = make_eig_problem(ng, device=dev)
+    for run in ("first", "second"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, r = hermitian_eig_step(h)
+        torch.cuda.synchronize()
+        print(f"{sys.argv[1]} hermitian_eig_step n={ng} f32 ({run} run): "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms, scaled residual "
+              f"{r.item():.4f}", flush=True)
 '''
 
 
 def main():
     args = sys.argv[1:]
     seeds = ["0", "1", "2"]
-    flags = [a for a in args if a in ("--stages", "--dump-de")]
+    flags = [a for a in args if a in ("--stages", "--dump-de", "--eig")]
     args = [a for a in args if a not in flags]
     if "--seeds" in args:
         i = args.index("--seeds")

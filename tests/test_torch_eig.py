@@ -396,6 +396,47 @@ def test_glued_wilkinson_clusters_tridiag_eig():
     assert np.abs(Z.T @ Z - np.eye(n)).max() <= 32 * n * EPS64
 
 
+def test_tridiag_eig_float32_solved_in_float64():
+    """A float32 tridiagonal (the reduction of a symmetric n = 1024 matrix
+    with a semicircle spectrum, as HermitianEig hands one over) is solved
+    in float64 and rounded: (w, Z) in float32, residual on T and
+    orthogonality below 0.01 eps n (float32 inverse iteration read 0.89
+    and 3.29)."""
+    n = 1024
+    rng = np.random.default_rng(113)
+    g = rng.standard_normal((n, n))
+    h = sla.hessenberg((g + g.T) / np.sqrt(8 * n))
+    d = np.diag(h).astype(np.float32)
+    e = np.diag(h, -1).astype(np.float32)
+    w, Z = tt.tridiag_eig(torch.tensor(d), torch.tensor(e))
+    assert w.dtype == Z.dtype == torch.float32
+    w, Z = w.double().numpy(), Z.double().numpy()
+    eps = np.finfo(np.float32).eps
+    resid = _tz_resid(d.astype(np.float64), e.astype(np.float64), w, Z)
+    assert resid / (eps * n * np.abs(w).max()) < 0.01
+    assert np.abs(Z.T @ Z - np.eye(n)).max() / (eps * n) < 0.01
+
+
+def test_glued_wilkinson_clusters_tridiag_eig_float32():
+    """The glued-Wilkinson chain of ``test_glued_wilkinson_clusters_
+    tridiag_eig`` in float32 (n = 1008): solved in float64, its vectors
+    are orthogonal to 32 n eps (float32 inverse iteration read 922 n eps
+    here, as the JAX package does), residual < 100, eigenvalues to 1e3 eps
+    of LAPACK's on the float32 entries."""
+    d, e = _glued_wilkinson_tridiag(48, 1e-14)
+    d, e = d.astype(np.float32), e.astype(np.float32)
+    n = d.shape[0]
+    eps = np.finfo(np.float32).eps
+    w, Z = (x.double().numpy() for x in tt.tridiag_eig(torch.tensor(d),
+                                                      torch.tensor(e)))
+    wref = sla.eigvalsh_tridiagonal(d.astype(np.float64),
+                                    e.astype(np.float64))
+    assert np.abs(np.sort(w) - wref).max() < 1e3 * eps * np.abs(wref).max()
+    resid = _tz_resid(d.astype(np.float64), e.astype(np.float64), w, Z)
+    assert resid / (eps * n * np.abs(w).max()) < 100
+    assert np.abs(Z.T @ Z - np.eye(n)).max() <= 32 * n * eps
+
+
 def test_tridiag_eig_dense_cluster_float32_keeps_orthogonality():
     """A float32 tridiagonal whose 2048 eigenvalues fill one dense cluster
     (a uniform spectrum of width 0.01 at 0.2; ctol puts them all in one

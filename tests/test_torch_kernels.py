@@ -1,8 +1,11 @@
 """Port parity: the kernels K1 (local GEMM), K2 (masked rank-k update),
 K3a (Cholesky diagonal block), K3b/K3c (fused panel tail), K4 (pivoted LU
 panel), K5 (latrd panel), K6 (bulge chase), K7 (lower-triangle symv), K8
-(the ring SUMMA; its CPU parity is in test_torch_summa.py) and K9 (the
-level-1 elementwise kernels and the tiled transpose).
+(the ring SUMMA; its CPU parity is in test_torch_summa.py), K9 (the
+level-1 elementwise kernels and the tiled transpose) and K10 (the
+triangular inverse; it replaces no Pallas kernel, so its CPU tests hold
+a replay of its schedule against its plain version, and its card tests
+are here rather than in test_torch_blas.py, which imports JAX).
 
 On the CPU each wrapper takes its plain PyTorch version; those are held
 against the JAX package's Pallas kernels run in interpret mode, as the JAX
@@ -2704,3 +2707,367 @@ def test_ring_summa_kernel_refusals(cuda):
         ring_summa_kernel(a, [x.double() for x in b])
     with pytest.raises(ValueError):
         ring_summa_kernel(a, b[:1])
+
+
+# ---- K10: the triangular inverse ----
+
+def _upper(rng, n, dtype=torch.float64, batch=()):
+    """An upper triangle of order n with entries N(0, 1/n^2) above a
+    diagonal in [1, 2) (its rows diagonally dominant, so inv(U) is well
+    conditioned), NaN below the diagonal: K10 must never read those."""
+    a = rng.standard_normal((*batch, n, n)) / n
+    a = np.triu(a, 1) + np.eye(n) * (1 + rng.random((*batch, 1, n)))
+    a[..., np.tril_indices(n, -1)[0], np.tril_indices(n, -1)[1]] = np.nan
+    return torch.tensor(a).to(dtype)
+
+
+def _trinv_replay(U, unit, W):
+    """K10's schedule on the CPU for one (n, n) U (csrc/trinv.cu): per
+    stripe of W columns, heaviest first, back substitution over 32-row
+    tiles, bottom tile first; a tile's rows solved by substitution with
+    each row scaled by its 1 / u_ii and rows below the column held at 0,
+    then folded into the rows above. It reads only the entries the kernel
+    reads, and every entry of X is written once."""
+    n = U.shape[-1]
+    X = torch.full((n, n), float("nan"), dtype=U.dtype)
+    stripes = -(-n // W)
+    for rank in range(stripes):
+        c0 = (stripes - 1 - rank) * W
+        c1 = min(c0 + W, n)
+        nc = c1 - c0
+        R = torch.zeros((c1, W), dtype=U.dtype)
+        for j in range(nc):
+            R[c0 + j, j] = 1
+        X[c1:, c0:c1] = 0
+        for r0 in range((c1 - 1) // 32 * 32, -1, -32):
+            h = min(32, c1 - r0)
+            ud = torch.zeros((32, 32), dtype=U.dtype)
+            for i in range(h):
+                ud[i, i + 1:h] = U[r0 + i, r0 + i + 1:r0 + h]
+                ud[i, i] = 1 if unit else U[r0 + i, r0 + i]
+            lanes = torch.arange(32)[:, None]
+            live = (lanes < h) & (torch.arange(W)[None, :] < nc) \
+                & (r0 + lanes <= c0 + torch.arange(W)[None, :])
+            d = torch.where(torch.arange(32) < h,
+                            1 / torch.diagonal(ud).where(
+                                torch.arange(32) < h, torch.ones(())), 0)
+            r = torch.where(live, d[:, None] * torch.cat(
+                [R[r0:r0 + h], torch.zeros((32 - h, W), dtype=U.dtype)]), 0)
+            xt = torch.zeros((32, W), dtype=U.dtype)
+            for k in range(31, -1, -1):
+                xt[k] = r[k]
+                r -= (d[:, None] * ud[:, k:k + 1]) * xt[k][None, :]
+            xt = torch.where(live, xt, 0)
+            X[r0:r0 + h, c0:c1] = xt[:h, :nc]
+            if r0:
+                R[:r0] -= U[:r0, r0:r0 + h] @ xt[:h]
+    return X
+
+
+@pytest.mark.parametrize("unit", [False, True], ids=["nonunit", "unit"])
+@pytest.mark.parametrize("W", [4, 16])
+@pytest.mark.parametrize("n", [1, 7, 33, 100])
+def test_trinv_replay_equals_plain(n, W, unit):
+    """The kernel's schedule, stripe by stripe and tile by tile, gives the
+    plain chain's inverse to float64 rounding, exact zeros below the
+    diagonal, and never reads a NaN the triangle leaves out."""
+    from elementalx_torch.kernels.trinv import trinv_plain
+
+    U = _upper(np.random.default_rng(n + W), n)
+    if unit:
+        U.diagonal().fill_(float("nan"))
+    got = _trinv_replay(U, unit, W)
+    want = trinv_plain(U, unit)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    assert torch.equal(torch.tril(got, -1), torch.zeros_like(got))
+    assert (got - want).abs().max() <= 1e-13 * want.abs().max()
+
+
+@pytest.mark.parametrize("n,batch,sms,W", [
+    (512, 1, 132, 4), (1024, 1, 132, 4), (512, 32, 132, 16),
+    (128, 4, 132, 4), (1, 1, 132, 4), (1024, 3, 132, 16), (512, 5, 132, 16)])
+def test_trinv_stripe_width(n, batch, sms, W):
+    from elementalx_torch.kernels.trinv import WIDTHS, stripe_width
+
+    assert stripe_width(n, batch, sms) == W and W in WIDTHS
+
+
+def test_trinv_cpu_takes_the_plain_chain():
+    """A CPU tensor takes the plain chain and counts no launch; the unit
+    inverse through the flag equals the chain on the triangle with its
+    diagonal set to 1 (the former ``torch.where`` copy), bit for bit."""
+    from elementalx_torch.blas.trinv import (
+        tri_inv_lower,
+        tri_inv_lower_unit,
+        tri_inv_upper,
+    )
+    from elementalx_torch.kernels.trinv import trinv, trinv_plain
+
+    trinv.launches = 0
+    U = _upper(np.random.default_rng(5), 40, batch=(3,))
+    assert torch.equal(tri_inv_upper(U), trinv_plain(U))
+    L = U.mT
+    assert torch.equal(tri_inv_lower(L), trinv_plain(U).mT)
+    eye = torch.eye(40, dtype=torch.bool)
+    ones = torch.where(eye, torch.ones(()), U.mT)
+    want = trinv_plain(ones.mT).mT
+    L = L.clone()
+    L.diagonal(dim1=-2, dim2=-1).fill_(float("nan"))
+    assert torch.equal(tri_inv_lower_unit(L), want)
+    assert trinv.launches == 0
+
+
+@pytest.mark.parametrize("n,calls", [
+    (130, [(2, 48), (1, 34)] * 2),  # 4 parts: nb 48, q 2, a last of 34
+    (192, [(4, 48)] * 2)])          # 4 full blocks, one call a matrix
+@pytest.mark.parametrize("unit", [False, True], ids=["nonunit", "unit"])
+def test_trinv_halving_on_cpu(monkeypatch, unit, n, calls):
+    """Above MAX_N the wrapper inverts the triangle's diagonal blocks in one
+    call on their strided view (a second for a shorter last block) and
+    joins them up a binary tree: run on the CPU with the kernel's schedule
+    as the block inverse and MAX_N lowered to 48, it equals the plain chain
+    (B read from the triangle only)."""
+    k10 = importlib.import_module("elementalx_torch.kernels.trinv")
+    monkeypatch.setattr(k10, "MAX_N", 48)
+    U = _upper(np.random.default_rng(6), n, batch=(2,))
+    X = torch.full(U.shape, float("nan"), dtype=U.dtype)
+    blocks = []
+
+    def block(Ub, Xb, unit_):
+        blocks.append(tuple(Ub.shape[:2]))
+        for b in range(Ub.shape[0]):
+            Xb[b] = _trinv_replay(Ub[b], unit_, 4)
+
+    k10._invert(U, X, unit, block)
+    want = k10.trinv_plain(U, unit)
+    assert blocks == calls
+    assert (X - want).abs().max() <= 1e-13 * want.abs().max()
+    assert torch.equal(torch.tril(X, -1), torch.zeros_like(X))
+
+
+def _hard_upper(kind, n, dtype, seed=0):
+    """(U, unit): a triangle of order n as the paths hand K10 one, built in
+    ``dtype`` on the CPU. "chol": the Cholesky factor L^T of an SPD matrix
+    of condition 1e6 (GenDefEig's B, Cholesky's panels); "cholqr2": R = R2
+    R1 of CholeskyQR2 on a tall matrix of condition 1e3 (QR's panels);
+    "lu": the unit L^T of a partially pivoted LU of a random matrix (LU's
+    L11), its diagonal NaN, which K10 must not read."""
+    rng = np.random.default_rng(seed + n)
+    if kind == "chol":
+        q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        a = (q * np.geomspace(1, 1e-6, n)) @ q.T
+        a = torch.tensor((a + a.T) / 2).to(dtype)
+        return torch.linalg.cholesky(a).mT.contiguous(), False
+    if kind == "cholqr2":
+        u, _ = np.linalg.qr(rng.standard_normal((4 * n, n)))
+        v, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        a = torch.tensor((u * np.geomspace(1, 1e-3, n)) @ v.T).to(dtype)
+        r1 = torch.linalg.cholesky(a.mT @ a).mT
+        q1 = torch.linalg.solve_triangular(r1, a, upper=True, left=False)
+        r2 = torch.linalg.cholesky(q1.mT @ q1).mT
+        return torch.triu(r2 @ r1).contiguous(), False
+    lu = torch.linalg.lu(torch.tensor(rng.standard_normal((n, n))).to(
+        dtype))[1]
+    U = lu.mT.contiguous()
+    U.diagonal().fill_(float("nan"))
+    return U, True
+
+
+def _hard_errors(X, U, unit):
+    """X's errors as inv(U), in float64: ||XU - I||_inf and ||UX - I||_inf
+    over n eps ||X||_inf ||U||_inf, and max|X - inv(U)| / max|inv(U)|
+    against the float64 inverse of U as rounded to its type."""
+    n = U.shape[-1]
+    eps = torch.finfo(U.dtype).eps
+    Ud = torch.triu(U.double(), 1 if unit else 0)
+    if unit:
+        Ud = Ud + torch.eye(n, dtype=torch.float64, device=U.device)
+    Xd = X.double()
+    eye = torch.eye(n, dtype=torch.float64, device=U.device)
+    inf = lambda m: m.abs().sum(-1).amax(-1)  # noqa: E731
+    den = n * eps * inf(Xd) * inf(Ud)
+    exact = torch.linalg.solve_triangular(Ud, eye, upper=True)
+    return ((inf(Xd @ Ud - eye) / den).item(),
+            (inf(Ud @ Xd - eye) / den).item(),
+            ((Xd - exact).abs().max() / exact.abs().max()).item())
+
+
+@pytest.mark.parametrize("kind", ["chol", "cholqr2", "lu"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_trinv_replay_hard_triangles(dt, kind):
+    """The kernel's schedule on triangles the paths hand it (n = 100):
+    each of its errors within 4x the plain chain's on the same input (the
+    schedule reads 0.6-2.2x at n = 100, 0.3-1.3x at n = 512)."""
+    from elementalx_torch.kernels.trinv import trinv_plain
+
+    U, unit = _hard_upper(kind, 100, dt)
+    got = _hard_errors(_trinv_replay(U, unit, 16), U, unit)
+    want = _hard_errors(trinv_plain(U, unit), U, unit)
+    assert got[0] < 1 and got[1] < 1
+    assert all(g <= 4 * w for g, w in zip(got, want)), (got, want)
+
+
+def _trinv_case(kind, n, dtype, cuda, seed=0):
+    """(argument of the call, clean upper triangle, the call)."""
+    from elementalx_torch.blas.trinv import (
+        tri_inv_lower,
+        tri_inv_lower_unit,
+        tri_inv_upper,
+    )
+
+    U = _upper(np.random.default_rng(seed + n), n, dtype).to(cuda)
+    clean = torch.triu(torch.nan_to_num(U))
+    if kind == "upper":
+        return U, clean, tri_inv_upper
+    if kind == "lower":
+        return U.mT, clean, lambda L: tri_inv_lower(L).mT
+    U.diagonal(dim1=-2, dim2=-1).fill_(float("nan"))
+    clean.diagonal(dim1=-2, dim2=-1).fill_(1)
+    return U.mT, clean, lambda L: tri_inv_lower_unit(L).mT
+
+
+def _trinv_checks(X, clean, want, dtype):
+    """inv(U) in the kernel's type: ||X U - I||_inf / (n eps ||X||_inf
+    ||U||_inf) below 1 (substitution's bound, |XU - I| <= n u |X||U| to
+    first order), within n eps of the plain chain's result relative to
+    its largest entry, exact zeros below the diagonal."""
+    n = X.shape[-1]
+    eps = torch.finfo(dtype).eps
+    Xd, Ud = X.double(), clean.double()
+    eye = torch.eye(n, dtype=torch.float64, device=X.device)
+    inf = lambda m: m.abs().sum(-1).amax(-1)  # noqa: E731
+    resid = inf(Xd @ Ud - eye) / (n * eps * inf(Xd) * inf(Ud))
+    assert torch.isfinite(X).all()
+    assert resid.max().item() < 1, resid.max().item()
+    err = (X.double() - want.double()).abs().max() / want.double().abs().max()
+    assert err.item() <= n * eps, err.item()
+    assert torch.equal(torch.tril(X, -1), torch.zeros_like(X))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["upper", "lower", "unit"])
+@pytest.mark.parametrize("n", [1, 7, 16, 200, 512, 1000, 1024, 1500])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_trinv_kernel_vs_plain(cuda, dt, n, kind):
+    """One launch a call up to n = 1024 (1500: blocks of 752 and 748, two
+    launches), NaN outside the triangle (and on a unit diagonal) never
+    reaching X."""
+    from elementalx_torch.kernels.trinv import trinv, trinv_plain
+
+    arg, clean, call = _trinv_case(kind, n, dt, cuda)
+    before = trinv.launches
+    X = call(arg)
+    torch.cuda.synchronize()
+    assert trinv.launches - before == (1 if n <= 1024 else 2)
+    assert X.dtype == dt and X.shape == (n, n)
+    _trinv_checks(X, clean, trinv_plain(clean), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 1024])
+@pytest.mark.parametrize("kind", ["chol", "cholqr2", "lu"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_trinv_kernel_hard_triangles(cuda, dt, kind, n):
+    """K10 on triangles the paths hand it (a Cholesky factor of condition
+    1e3, CholeskyQR2's R, LU's unit L through .mT): each of its errors as
+    inv(U) within 4x the plain chain's on the same card, one launch."""
+    from elementalx_torch.blas.trinv import tri_inv_lower_unit, tri_inv_upper
+    from elementalx_torch.kernels.trinv import trinv, trinv_plain
+
+    U, unit = _hard_upper(kind, n, dt)
+    U = U.to(cuda)
+    before = trinv.launches
+    X = tri_inv_lower_unit(U.mT).mT if unit else tri_inv_upper(U)
+    torch.cuda.synchronize()
+    assert trinv.launches - before == 1
+    got = _hard_errors(X, U, unit)
+    want = _hard_errors(trinv_plain(U, unit), U, unit)
+    assert got[0] < 1 and got[1] < 1
+    assert all(g <= 4 * w for g, w in zip(got, want)), (got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["upper", "lower", "unit"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_trinv_kernel_batched_strided_view(cuda, dt, kind):
+    """Trsm's batch: the 32 diagonal 512 x 512 blocks of a 16384^2
+    triangle as one strided (32, 512, 512) view (its lower case through
+    .mT), read in place by one launch."""
+    from elementalx_torch.blas.trinv import (
+        tri_inv_lower,
+        tri_inv_lower_unit,
+        tri_inv_upper,
+    )
+    from elementalx_torch.kernels.trinv import trinv, trinv_plain
+
+    n, nb = 16384, 512
+    T = torch.full((n, n), float("nan"), dtype=dt, device=cuda)
+    s0, s1 = T.stride()
+    view = T.as_strided((n // nb, nb, nb), (nb * (s0 + s1), s0, s1))
+    view.copy_(_upper(np.random.default_rng(8), nb, batch=(n // nb,))
+               .to(dt))
+    clean = torch.triu(torch.nan_to_num(view.clone()))
+    if kind == "unit":
+        view.diagonal(dim1=-2, dim2=-1).fill_(float("nan"))
+        clean.diagonal(dim1=-2, dim2=-1).fill_(1)
+    before = trinv.launches
+    if kind == "upper":
+        X = tri_inv_upper(view)
+    elif kind == "lower":
+        X = tri_inv_lower(view.mT).mT
+    else:
+        X = tri_inv_lower_unit(view.mT).mT
+    torch.cuda.synchronize()
+    assert trinv.launches - before == 1
+    _trinv_checks(X, clean, trinv_plain(clean), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [200, 512])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_trinv_kernel_widths_give_the_same_bits(cuda, dt, n):
+    """Both stripe widths sum each entry in the same order: the same bits
+    at either width, and twice."""
+    from elementalx_torch.kernels.trinv import WIDTHS, _launch
+
+    U = _upper(np.random.default_rng(9), n, batch=(3,)).to(dt).to(cuda)
+    outs = []
+    for W in WIDTHS + WIDTHS[:1]:
+        X = torch.empty_like(U)
+        _launch(U, X, False, W)
+        outs.append(X)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_trinv_kernel_copies_a_batch_it_cannot_stride(cuda):
+    """Leading dimensions that collapse into no one stride are copied once
+    by reshape; a 2 x 3 batch of 64 x 64 triangles with its batch
+    dimensions swapped."""
+    from elementalx_torch.kernels.trinv import trinv, trinv_plain
+
+    U = _upper(np.random.default_rng(10), 64, batch=(3, 2)).to(cuda)
+    U = U.transpose(0, 1)
+    X = trinv(U)
+    torch.cuda.synchronize()
+    assert X.shape == (2, 3, 64, 64)
+    _trinv_checks(X, torch.triu(torch.nan_to_num(U)),
+                  trinv_plain(torch.triu(torch.nan_to_num(U))),
+                  torch.float64)
+
+
+@pytest.mark.cuda
+def test_trinv_kernel_refuses_other_types(cuda):
+    from elementalx_torch.kernels.trinv import trinv
+
+    for dt in (torch.bfloat16, torch.float16, torch.complex64):
+        with pytest.raises(TypeError):
+            trinv(torch.eye(8, dtype=dt, device=cuda))
+    with pytest.raises(ValueError):
+        trinv(torch.ones((4, 5), device=cuda))
