@@ -5,14 +5,17 @@ place, one precision below the traffic's) over a few.
 Usage, from the root of a checkout, on a machine with an NVIDIA GPU:
 
     python3 elxbench/calibrate.py --workload <cell> --seeds 1 2 ... \
-        --control-seeds 101 102 103 --seconds 3 [--out FILE]
+        --control-seeds 101 102 103 --seconds 3 [--control-precision P] \
+        [--out FILE]
 
 Each seed is one run of the cell (run.py's set-up, a short window at the
 cell's own load, the judge), all in this process. One JSON line a run
 (side, seed, the numbers compared), then the lower reading (the largest
 that the program gave) and the upper reading (the smallest that the
-control gave) of each number. The benchmark's own runs never run the
-control.
+control gave) of each number. ``--control-precision`` puts the reference
+at another of its precisions in the program's place (a fault to read the
+limit against) instead of the configuration's control. The benchmark's
+own runs never run the control.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ def main() -> int:
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--control-seeds", type=int, nargs="*", default=[])
     ap.add_argument("--seconds", type=float, default=3.0)
+    ap.add_argument("--control-precision")
     ap.add_argument("--out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -42,15 +46,20 @@ def main() -> int:
         return 2
     cell = cells.load_cell(args.workload)
     dev = torch.device("cuda", 0)
+    control = (args.control_precision
+               or cell.config["control"][cell.traffic["dtype"]])
     lines, worst = [], {}
     for side, seeds in (("program", args.seeds),
                         ("control", args.control_seeds)):
         for seed in seeds:
-            solver = run.control_solver(cell) if side == "control" else None
+            solver = (run.control_solver(cell, control)
+                      if side == "control" else None)
             read: dict = {}
             res = run.run(cell, seed, args.seconds, False, dev, solver=solver,
                           log=lambda s: None, readings=read)
             line = {"workload": cell.name, "side": side, "seed": seed,
+                    "precision": (control if side == "control"
+                                  else cell.traffic["dtype"]),
                     "attempted": res["attempted"], "failed": res["failed"],
                     "correct": res["correct"], "checks": read}
             print(json.dumps(line), flush=True)

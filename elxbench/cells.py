@@ -6,8 +6,10 @@ the name that ``BENCHMARK.json`` gives it:
 - ``workloads/<cell>.json``: the cell: its configuration, its traffic mix,
   the chips it needs and the limits of its correctness numbers;
 - ``configs/<config>.json``: the configuration: the public entry of the
-  port that a call runs, the precisions its source states (a cell runs in
-  one of them), the accuracy it promises, the precision of its control;
+  port that a call runs and its arguments (``call``: the entry's name,
+  then "A" and "B" for the inputs, the name of a constant of the package,
+  or a number), the precisions its source states (a cell runs in one of
+  them), the accuracy it promises, the precision of its control;
 - ``traffic/<traffic>.json``: the traffic mix: dtype, n, nrhs and the
   number of distinct problems the window cycles through;
 - ``reference/<config>.py``: the plain reference: the inputs from the seed
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import re
 from pathlib import Path
 from types import ModuleType
@@ -30,6 +33,8 @@ from typing import Dict, NamedTuple
 
 HERE = Path(__file__).resolve().parent
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+#: the names of a call's inputs, A and B of the problem
+INPUTS = ("A", "B")
 
 
 class Cell(NamedTuple):
@@ -48,6 +53,20 @@ def _checked(name: str) -> str:
     if not NAME.match(name):
         raise ValueError(f"not a benchmark name: {name!r}")
     return name
+
+
+def check_call(call) -> list:
+    """``call`` if it is a configuration's call: a list of the entry's name
+    and then its arguments, each a string (an input or a constant's name)
+    or a finite JSON number (never a bool)."""
+    ok = (isinstance(call, list) and call and isinstance(call[0], str)
+          and all(isinstance(s, str) or (isinstance(s, (int, float))
+                                         and not isinstance(s, bool)
+                                         and math.isfinite(s))
+                  for s in call[1:]))
+    if not ok:
+        raise ValueError(f"not a configuration's call: {call!r}")
+    return call
 
 
 def load_json(path: Path) -> dict:
@@ -74,6 +93,7 @@ def load_cell(name: str, root: Path = HERE) -> Cell:
     traffic = load_json(root / "traffic" / f"{trf}.json")
     if traffic["dtype"] not in config["precisions"]:
         raise ValueError(f"{cfg} states no {traffic['dtype']} routine")
+    check_call(config["call"])
     return Cell(
         name=name, chips=int(w["chips"]), limits=dict(w["limits"]),
         config_name=cfg, config=config, traffic_name=trf, traffic=traffic,

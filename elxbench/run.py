@@ -94,31 +94,40 @@ def no_span(name: str):
     return contextlib.nullcontext()
 
 
+def resolve_call(call: list) -> Tuple[Callable, list]:
+    """(entry, arguments) of a configuration's ``call`` (checked by
+    ``cells.check_call``): the port's public entry by its name, then each
+    argument: "A" and "B" kept as the names of the inputs, any other string
+    the package's constant of that name, a number as it is."""
+    name, *args = call
+    return getattr(Et, name), [
+        getattr(Et, s) if isinstance(s, str) and s not in cells.INPUTS else s
+        for s in args]
+
+
 def port_solver(config: dict, grid) -> Solver:
     """solve(a, b, span) -> X through the configuration's public entry of
-    the port (``config["call"]``: the entry's name, then its arguments, "A"
-    and "B" the DistMatrices of a and b, any other name a constant of the
-    package)."""
-    name, *args = config["call"]
-    entry = getattr(Et, name)
-    consts = {s: getattr(Et, s) for s in args if s not in ("A", "B")}
+    the port (``config["call"]``, see ``resolve_call``), "A" and "B" the
+    DistMatrices of a and b."""
+    entry, args = resolve_call(config["call"])
 
     def solve(a, b, span=no_span):
         with span("elxbench.from_global"):
             mats = {"A": Et.DistMatrix.from_global(a, grid=grid),
                     "B": Et.DistMatrix.from_global(b, grid=grid)}
         with span("elxbench.solve"):
-            x = entry(*[mats[s] if s in mats else consts[s] for s in args])
+            x = entry(*[mats[s] if s in cells.INPUTS else s for s in args])
         return x.replicated()[:x.m, :x.n]
 
     return solve
 
 
-def control_solver(cell) -> Solver:
+def control_solver(cell, precision: Optional[str] = None) -> Solver:
     """The plain reference in the program's place, at the precision below
-    the traffic's that the configuration names."""
+    the traffic's that the configuration names (or at ``precision``, a
+    fault of another kind that its reference computes)."""
     dtype = getattr(torch, cell.traffic["dtype"])
-    precision = cell.config["control"][cell.traffic["dtype"]]
+    precision = precision or cell.config["control"][cell.traffic["dtype"]]
 
     def solve(a, b, span=no_span):
         return cell.reference.solve(a, b, precision).to(dtype)

@@ -10,7 +10,8 @@ Every set runs the same seeds in order. Each run's last stdout line (or
 its failure, with the end of its stderr) goes to ``--out`` as one JSON
 line. Then, for each set and metric, the values, the median and the
 spread: the distance between the first and the third quartile
-(``statistics.quantiles(values, n=4)``) as a share of the median.
+(``statistics.quantiles(values, n=4)``) as a share of the median (none
+where the median is 0, as a count that reads 0 in every run).
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ def main() -> int:
                     if name in g["metrics"]]
             line = {"set": k, "metric": name, "values": vals,
                     "median": statistics.median(vals)}
-            if len(vals) >= 2:
+            if len(vals) >= 2 and line["median"]:
                 line["spread"] = spread(vals)
             print(json.dumps(line))
     print(json.dumps({"workload": args.workload, "runs": len(rows),

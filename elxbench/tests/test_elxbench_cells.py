@@ -76,7 +76,8 @@ def test_a_new_cell_configuration_and_metric_are_files_alone(tmp_path):
     """A later change copies nothing and edits nothing: it adds a
     configuration (its file, reference and work count), a traffic mix, a
     cell and a per-layer metric's reader, and the harness finds them by
-    name and runs the cell."""
+    name and runs the cell; a configuration's call may carry a number (a
+    Gemm's alpha)."""
     before = _digest(BENCH)
     root = tmp_path / "bench"
     shutil.copytree(BENCH, root, ignore=shutil.ignore_patterns(
@@ -97,11 +98,29 @@ def test_a_new_cell_configuration_and_metric_are_files_alone(tmp_path):
     (root / "metrics" / "lapack.calls_traced.py").write_text(
         'UNIT = "count"\n\n\ndef read(t):\n    return t.get("calls")\n')
 
+    cfg = json.loads((root / "configs" / "gemm.json").read_text())
+    cfg.update(name="gemm_half",
+               call=["Gemm", "NORMAL", "NORMAL", 0.5, "A", "B"])
+    (root / "configs" / "gemm_half.json").write_text(json.dumps(cfg))
+    (root / "reference" / "gemm_half.py").write_text(
+        "from elxbench.reference.gemm import make_problem, solve as _solve\n"
+        "\n\ndef solve(a, b, precision):\n"
+        "    return 0.5 * _solve(a, b, precision)\n")
+    shutil.copy(root / "work" / "gemm.py", root / "work" / "gemm_half.py")
+    (root / "traffic" / "bf16.n48.rhs40.p2.json").write_text(json.dumps(
+        {"dtype": "bfloat16", "n": 48, "nrhs": 40, "problems": 2}))
+    (root / "workloads" / "gemm_half.bf16.n48.json").write_text(json.dumps(
+        {"config": "gemm_half", "traffic": "bf16.n48.rhs40.p2",
+         "chips": 1, "limits": {"fwd": 1.0}}))
+
     cell = cells.load_cell("hpd_upper.f64.n48", root)
     assert cell.config["call"][1] == "UPPER"
     assert "lapack.calls_traced" in cells.readers(root)
     assert set(cells.readers()) < set(cells.readers(root))
-    res = run.run(cell, 5, 0.2, False, torch.device("cpu"),
-                  t0=0.0, log=lambda s: None)
-    assert res["correct"], res["checks"]
+    half = cells.load_cell("gemm_half.bf16.n48", root)
+    assert half.config["call"][3] == 0.5
+    for c in (cell, half):
+        res = run.run(c, 5, 0.2, False, torch.device("cpu"),
+                      t0=0.0, log=lambda s: None)
+        assert res["correct"], (c.name, res["checks"])
     assert _digest(BENCH) == before

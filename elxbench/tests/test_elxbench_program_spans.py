@@ -51,9 +51,25 @@ def test_they_read_nothing_without_calls(readers, monkeypatch):
 
 
 def test_they_read_nothing_without_a_solve(readers, monkeypatch):
+    """Nor blas's host time, where no blas span was recorded either."""
+    spans = {n: v for n, v in SUMMARY["spans"].items()
+             if not n.startswith("blas.")}
     monkeypatch.setattr(program_trace, "summary",
-                        lambda: dict(SUMMARY, solves=0))
+                        lambda: {"solves": 0, "spans": spans})
     assert all(r.read(CTX) is None for r in readers.values())
+
+
+def test_blas_host_time_of_a_call_that_is_no_solve(readers, monkeypatch):
+    """A Gemm records blas spans and no lapack solve: blas's host time is
+    taken over the traced calls, and the lapack readers read nothing."""
+    spans = {"blas.local_gemm": _span(4, 40.0, 36.0),
+             "core.from_global": _span(8, 1.0, 1.0)}
+    monkeypatch.setattr(program_trace, "summary",
+                        lambda: {"solves": 0, "spans": spans})
+    got = {n: r.read(CTX) for n, r in readers.items()}
+    assert got == {"lapack.factor_ms": None, "blas.trsm_ms": None,
+                   "lapack.host_self_ms": None,
+                   "blas.host_self_ms": pytest.approx(36.0 / 4)}
 
 
 def test_they_read_a_value_a_solve(readers, monkeypatch):
