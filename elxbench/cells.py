@@ -13,7 +13,8 @@ the name that ``BENCHMARK.json`` gives it:
 - ``traffic/<traffic>.json``: the traffic mix: dtype, n, nrhs and the
   number of distinct problems the window cycles through;
 - ``reference/<config>.py``: the plain reference: the inputs from the seed
-  and the solve in plain PyTorch at a stated precision;
+  and the solve in plain PyTorch at a stated precision, and, where the
+  answer is not one X, the numbers the judge compares (``numbers``);
 - ``work/<config>.py``: the nominal operations and bytes of one call;
 - ``metrics/<metric>.py``: the reader of one per-layer metric.
 

@@ -11,11 +11,17 @@ numbers, each evaluated in float64 and scaled by the traffic dtype's eps:
 - ``resid``: ||B - A X||_inf / (||A||_inf ||X||_inf n eps), the normwise
   backward error.
 
+A configuration whose answer is not one X (eigenpairs, say) defines its
+own numbers in its reference: ``reference/<config>.py:numbers(a, b,
+answer, ref, eps)``, with ``ref`` its reference's float64 answer; the
+judge then calls that in place of ``numbers`` below, and reads a value
+that is not finite as NONFINITE.
+
 A number is compared where the cell (``workloads/<cell>.json``, set from
 the program's and the control's readings) or the configuration (the
 accuracy it states) gives it a limit, the smaller where both do, and is
 the worst over the sampled answers. Beside them ``failed_calls``: calls that raised or returned a
-non-finite X (limit 0). A number that is not finite reads as NONFINITE.
+non-finite answer (limit 0). A number that is not finite reads as NONFINITE.
 """
 
 from __future__ import annotations
@@ -57,19 +63,21 @@ def judge(cell, problems: Sequence[Tuple[torch.Tensor, torch.Tensor]],
           samples: List[Tuple[int, torch.Tensor]], failed: int
           ) -> Tuple[Dict[str, dict], Dict[str, float], bool]:
     """(the numbers compared, each with its value and limit; every number
-    read; correct) for the sampled (problem index, X) answers of a
+    read; correct) for the sampled (problem index, answer) pairs of a
     window."""
     eps = torch.finfo(getattr(torch, cell.traffic["dtype"])).eps
     limits = dict(cell.config["accuracy"])
     for k, lim in cell.limits.items():
         limits[k] = min(lim, limits.get(k, math.inf))
+    read = getattr(cell.reference, "numbers", numbers)
     worst: Dict[str, float] = {}
     refs: Dict[int, tuple] = {}
     for p, x in samples:
         if p not in refs:
             a, b = (t.to(torch.float64) for t in problems[p])
             refs[p] = (a, b, cell.reference.solve(a, b, "float64"))
-        for k, v in numbers(*refs[p][:2], x, refs[p][2], eps).items():
+        for k, v in read(*refs[p][:2], x, refs[p][2], eps).items():
+            v = v if math.isfinite(v) else NONFINITE
             worst[k] = max(worst.get(k, 0.0), v)
     checks = {k: {"value": worst.get(k, NONFINITE), "limit": lim}
               for k, lim in limits.items()}

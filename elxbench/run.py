@@ -14,10 +14,12 @@ One run of a cell (``workloads/<cell>.json``, see cells.py):
    calls of the cell's own shapes (the first run of a checkout builds the
    port's kernels here, into ``elementalx_torch/kernels/_build/``);
 2. the window: a closed loop of one caller for ``--seconds``, each call
-   ``DistMatrix.from_global`` of A and B on a 1 x 1 Grid of cuda:0, the
-   configuration's public solve, and a synchronize, cycling through the P
-   problems; each call timed by CUDA events around it, and its X's
-   infinity norm taken after it to count non-finite answers. After each
+   ``DistMatrix.from_global`` of the inputs the configuration's call names
+   (A, and B where it names B) on a 1 x 1 Grid of cuda:0, the
+   configuration's public entry, and a synchronize, cycling through the P
+   problems; each call timed by CUDA events around it, and the infinity
+   norm of every part of its answer (X, or a tuple such as (w, Q)) taken
+   after it to count non-finite answers. After each
    call the caller collects Python's garbage (``gc.collect()``, cheap
    since set-up's objects are frozen): each solve of the port leaves
    reference cycles that hold n x n device buffers, and a caller that
@@ -60,7 +62,7 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 import traceback  # noqa: E402
 from pathlib import Path  # noqa: E402
-from typing import Callable, Dict, List, Optional, Tuple  # noqa: E402
+from typing import Callable, Dict, List, Optional, Tuple, Union  # noqa: E402
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -77,8 +79,8 @@ from elxbench.judge import judge  # noqa: E402
 FOREIGN = ("jax", "jaxlib", "flax", "elementalx")
 #: answers of the window kept for the judge (a reservoir drawn from the seed)
 SAMPLES = 16
-#: the traced step: at least 3 calls, about a second of them, at most 100
-TRACE_CALLS = (3, 1.0, 100)
+#: the traced step: at least 1 call, about a second of them, at most 100
+TRACE_CALLS = (1, 1.0, 100)
 #: cache directories inside the checkout, at fixed paths
 CACHE_VARS = {"TRITON_CACHE_DIR": "triton",
               "TORCH_EXTENSIONS_DIR": "torch_extensions",
@@ -87,7 +89,9 @@ CACHE_VARS = {"TRITON_CACHE_DIR": "triton",
 SMI_FIELDS = ("name,power.limit,clocks.sm,clocks.max.sm,clocks.mem,"
               "temperature.gpu,power.draw")
 
-Solver = Callable[..., torch.Tensor]
+#: a call's answer: X, or a tuple of tensors such as (w, Q)
+Answer = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+Solver = Callable[..., Answer]
 
 
 def no_span(name: str):
@@ -105,19 +109,31 @@ def resolve_call(call: list) -> Tuple[Callable, list]:
         for s in args]
 
 
+def _local(x):
+    """A DistMatrix replicated and cut to its logical shape; a tensor as it
+    is."""
+    return x.replicated()[:x.m, :x.n] if isinstance(x, Et.DistMatrix) else x
+
+
 def port_solver(config: dict, grid) -> Solver:
-    """solve(a, b, span) -> X through the configuration's public entry of
-    the port (``config["call"]``, see ``resolve_call``), "A" and "B" the
-    DistMatrices of a and b."""
+    """solve(a, b, span) -> the answer through the configuration's public
+    entry of the port (``config["call"]``, see ``resolve_call``), "A" and
+    "B" the DistMatrices of a and b, each built only where the call names
+    it. A DistMatrix result is X; a tuple result stays a tuple, each
+    DistMatrix in it replicated and cut to its logical shape, each tensor
+    kept as it is."""
     entry, args = resolve_call(config["call"])
+    named = [s for s in config["call"][1:] if s in cells.INPUTS]
 
     def solve(a, b, span=no_span):
         with span("elxbench.from_global"):
-            mats = {"A": Et.DistMatrix.from_global(a, grid=grid),
-                    "B": Et.DistMatrix.from_global(b, grid=grid)}
+            mats = {s: Et.DistMatrix.from_global(t, grid=grid)
+                    for s, t in (("A", a), ("B", b)) if s in named}
         with span("elxbench.solve"):
-            x = entry(*[mats[s] if s in cells.INPUTS else s for s in args])
-        return x.replicated()[:x.m, :x.n]
+            out = entry(*[mats[s] if s in cells.INPUTS else s for s in args])
+        if isinstance(out, tuple):
+            return tuple(_local(x) for x in out)
+        return _local(out)
 
     return solve
 
@@ -125,14 +141,25 @@ def port_solver(config: dict, grid) -> Solver:
 def control_solver(cell, precision: Optional[str] = None) -> Solver:
     """The plain reference in the program's place, at the precision below
     the traffic's that the configuration names (or at ``precision``, a
-    fault of another kind that its reference computes)."""
+    fault of another kind that its reference computes), every part of its
+    answer cast to the traffic's dtype."""
     dtype = getattr(torch, cell.traffic["dtype"])
     precision = precision or cell.config["control"][cell.traffic["dtype"]]
 
     def solve(a, b, span=no_span):
-        return cell.reference.solve(a, b, precision).to(dtype)
+        x = cell.reference.solve(a, b, precision)
+        if isinstance(x, tuple):
+            return tuple(t.to(dtype) for t in x)
+        return x.to(dtype)
 
     return solve
+
+
+def traced_calls(per_call_s: float) -> int:
+    """The calls of the traced step (``TRACE_CALLS``) at ``per_call_s``
+    seconds a call."""
+    lo, target_s, hi = TRACE_CALLS
+    return max(lo, min(hi, math.ceil(target_s / per_call_s)))
 
 
 def launch_counts() -> Dict[str, int]:
@@ -209,7 +236,8 @@ def run(cell, seed: int, seconds: float, traced: bool, dev: torch.device,
     norms: List[torch.Tensor] = []
 
     def call(p: int):
-        """(X or None, ms by the device's clock, ms by the host's)."""
+        """(the answer or None, ms by the device's clock, ms by the
+        host's)."""
         a, b = problems[p]
         h0 = time.perf_counter()
         if cuda:
@@ -223,7 +251,10 @@ def run(cell, seed: int, seconds: float, traced: bool, dev: torch.device,
             x = None
         if cuda:
             e1.record()
-        if x is not None:
+        if isinstance(x, tuple):
+            norms.append(sum(torch.linalg.vector_norm(t, math.inf).double()
+                             for t in x))
+        elif x is not None:
             norms.append(torch.linalg.vector_norm(x, math.inf))
         sync()
         host_ms = (time.perf_counter() - h0) * 1e3
@@ -302,7 +333,6 @@ def run(cell, seed: int, seconds: float, traced: bool, dev: torch.device,
         from torch.profiler import record_function
 
         per_call_s = statistics.median(call_ms) / 1e3
-        lo, target_s, hi = TRACE_CALLS
         k = [0]
 
         def one():
@@ -312,9 +342,8 @@ def run(cell, seed: int, seconds: float, traced: bool, dev: torch.device,
                 a, b = a.clone(), b.clone()
             solver(a, b, span=record_function)
 
-        spans = trace.profile_calls(
-            one, max(lo, min(hi, math.ceil(target_s / per_call_s))), sync,
-            collect)
+        spans = trace.profile_calls(one, traced_calls(per_call_s), sync,
+                                    collect)
         summary = trace.summarize(*spans)
         peaks = cells.load_json(cells.HERE / "peaks.json")
         ctx = dict(summary, dtype=tr["dtype"],
