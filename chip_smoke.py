@@ -52,11 +52,12 @@ Phases (each raises on failure, so the script exits non-zero):
      route runs, the grid route gives the same bits and runs in turns with
      it; then K4 at each of the LU path's 32 sub-panel heights;
   6. the LU slice: ``linear_solve_step`` at n=16384, nrhs=256, float32,
-     gated on the scaled backward error and the kernels' launch counts
-     (every K4 panel on the cluster route), and a small float64 run held
-     against the same step on the CPU (a torch.profiler trace of one warm
-     step, K4's share of the device time and the idle share, runs after
-     phase 12);
+     gated on the scaled backward error, the kernels' launch counts
+     (every K4 panel on the cluster route) and ``LU.update_rows`` (the
+     trailing updates over the rows not yet elected), and a small float64
+     run held against the same step on the CPU (a torch.profiler trace of
+     one warm step, K4's share of the device time and the idle share,
+     runs after phase 12);
   7. K5 (latrd panel) and K6 (bulge chase) against their plain versions:
      K5 at the HermitianEig path's panels (M=8192, k0=0 and 4096, beside
      the four-barrier design's times), a ragged panel and a float64 one,
@@ -286,6 +287,7 @@ def main() -> None:
     )
     from elementalx_torch.kernels.trinv import leaves, trinv, trinv_plain
     from elementalx_torch.lapack import condense, qr, sbr, tridiag_eig
+    from elementalx_torch.lapack.lu import LU
     from elementalx_torch.lapack.hermitian_eig import (
         SBR_AUTO_BAND,
         SBR_AUTO_MIN_N,
@@ -941,6 +943,7 @@ def main() -> None:
     k4_reset()
     k9_reset()
     k10_reset()
+    LU.update_rows = 0
     t0 = time.perf_counter()
     x, nrm = linear_solve_step(a, b)
     sync()
@@ -949,7 +952,8 @@ def main() -> None:
                    "K4": getrf_panel.launches,
                    "K4 routes": {r: getattr(getrf_panel, f"launches_{r}")
                                  for r in ("cluster", "grid")},
-                   "K9": k9_counts(), "K10": trinv.launches}
+                   "K9": k9_counts(), "K10": trinv.launches,
+                   "update rows": LU.update_rows}
     t0 = time.perf_counter()
     linear_solve_step(a, b)
     sync()
@@ -971,6 +975,12 @@ def main() -> None:
             f"{lu_launches}")
     require(lu_launches["K9"]["transpose"] == 0,
             f"a K9 transpose on the LU path: {lu_launches}")
+    # the trailing updates multiply the rows not yet elected only:
+    # n - (k + 1) nb rows after slab k, nb = 1024
+    tail_rows = sum(n - j for j in range(1024, n, 1024))
+    require(lu_launches["update rows"] == tail_rows,
+            f"the LU's updates multiplied {lu_launches['update rows']} "
+            f"rows, not {tail_rows}")
     del ad, xd, bd, r
     torch.linalg.solve(a, b)
     sync()

@@ -4,16 +4,20 @@ Counterpart of the single-device path of ``elementalx/lapack/lu.py``
 (reference: src/lapack_like/factor/LU.cpp:47-98, factor/LU/Panel.hpp,
 LU/Full.hpp, LU/SolveAfter.hpp, LU/Mod.hpp).
 
-``LU`` keeps the structure of the JAX LU: rows stay in their physical
+``LU`` keeps the row order of the JAX LU: rows stay in their physical
 positions, each nb-wide panel is gathered into logical order and factored
-as 512-wide sub-panels (``_lu_slab``), U12 goes to a separate buffer, the
-trailing update runs over the full height, and one gather at the end
-gives the packed layout. Every sub-panel goes through ``_getrf``: on a
-CUDA tensor the K4 kernel (kernels/getrf.py) factors it whole with true
-partial pivoting, at any height; on a CPU tensor the route is the JAX
-package's CPU route (LAPACK getrf, the CALU tournament above
-``_GETRF_CHUNK`` rows), so CPU parity is exact. Every product goes
-through ``local_gemm`` and so, on the GPU, through K1.
+as 512-wide sub-panels (``_lu_slab``), U12 goes to a separate buffer, and
+one gather at the end gives the packed layout. Where the JAX LU runs the
+trailing update over the full height (the elected rows multiplying
+zeros), the port's is right-looking: the product of the slab's
+multipliers and U12 covers the rows not yet elected only, and is added
+at their physical rows (``LU.update_rows`` counts those rows). Every
+sub-panel goes through ``_getrf``: on a CUDA tensor the K4 kernel
+(kernels/getrf.py) factors it whole with true partial pivoting, at any
+height; on a CPU tensor the route is the JAX package's CPU route (LAPACK
+getrf, the CALU tournament above ``_GETRF_CHUNK`` rows), so the pivots
+agree with the JAX LU's. Every product goes through ``local_gemm`` and
+so, on the GPU, through K1.
 
 Where the JAX code rebuilds a whole array functionally, the port writes in
 place into buffers it owns; each such place says so.
@@ -255,9 +259,14 @@ def _lu_panel_loop(a: torch.Tensor, perm: torch.Tensor, k0: int, nb: int,
 def LU(A: DistMatrix, blocksize: Optional[int] = None
        ) -> Tuple[DistMatrix, Permutation]:
     """Partially-pivoted LU: returns (packed LU, P) with P A = L U, unit L
-    below the diagonal (reference: LU.cpp:47-98)."""
+    below the diagonal (reference: LU.cpp:47-98). ``LU.update_rows``
+    sums the rows the trailing updates multiply, over every call since it
+    was last set to 0."""
     with trace.span("lapack.LU", A.device):
         return _lu(A, blocksize)
+
+
+LU.update_rows = 0
 
 
 def _lu(A: DistMatrix, blocksize: Optional[int]
@@ -304,11 +313,14 @@ def _lu(A: DistMatrix, blocksize: Optional[int]
             right = a[:, k0 + nb:]
             U12 = local_gemm(inv11, right[tail[:nb]])
             uout[k0:k0 + nb, k0 + nb:] = U12
-            Lphys = a.new_zeros((M, nb))
-            Lphys[tail[nb:]] = lu[nb:, :]
-            # the full-height trailing update (about 1.5x the flops of a
-            # right-looking one, elementalx/lapack/lu.py:369-370), in place
-            right -= local_gemm(Lphys, U12)
+            # the right-looking update, in place: lu[nb:] holds the
+            # multipliers of the rows not yet elected in tail[nb:] order,
+            # so each such row takes its product once (the indices are
+            # unique) and the elected rows take none; x + (-1) p is x - p
+            # bit for bit
+            rest = tail[nb:]
+            right.index_add_(0, rest, local_gemm(lu[nb:], U12), alpha=-1)
+            LU.update_rows += rest.numel()
     with trace.span("lapack.lu.gather"):
         a = a[rowmap]
         # overlay the logical-order U12 block-rows, in place of the JAX

@@ -1822,6 +1822,27 @@ def test_linear_solve_on_card(cuda, dt):
 
 
 @pytest.mark.cuda
+def test_lu_tail_update_on_card_vs_cpu(cuda):
+    """A float64 LU at n=3072 on the card (nb=1024: three slabs, two
+    trailing updates over the rows not yet elected, 2048 + 1024 of them)
+    elects the pivots the port's CPU LU elects on the same matrix, and
+    its factor agrees to 1e-10 of the largest entry."""
+    import elementalx_torch as Et
+    from elementalx_torch.lapack.lu import LU
+
+    g = torch.Generator().manual_seed(22)
+    a = torch.randn((3072, 3072), generator=g, dtype=torch.float64)
+    LU.update_rows = 0
+    F, P = LU(Et.DistMatrix.from_global(a.to(cuda), grid=Et.Grid(cuda)))
+    torch.cuda.synchronize()
+    assert LU.update_rows == 3072
+    Fc, Pc = LU(Et.DistMatrix.from_global(a, grid=Et.Grid("cpu")))
+    assert torch.equal(P.perm.cpu(), Pc.perm)
+    f, fc = F.replicated().cpu(), Fc.replicated()
+    assert (f - fc).abs().max() <= 1e-10 * fc.abs().max()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("M,k0,w,dt", [
     (300, 0, 64, torch.float64), (1000, 37, 100, torch.float32),
     (2048, 0, 128, torch.float64), (4096, 1024, 128, torch.float32),

@@ -396,6 +396,51 @@ def test_lu_with_slabs_vs_jax(one_device, monkeypatch):
     assert _rel(F.global_array(), JF.global_array()) < 1e-12
 
 
+@pytest.mark.parametrize("n,blocksize,rows", [
+    (96, 32, 64 + 32),   # three slabs, two updates (full height: 2 * 96)
+    (150, None, 75),     # the default blocksize, 75 here: one update
+])
+def test_lu_update_rows_counts_the_tail_rows(n, blocksize, rows):
+    """The trailing updates multiply the rows not yet elected only:
+    ``LU.update_rows`` sums M - (k + 1) nb over the updates."""
+    a = np.random.default_rng(45).standard_normal((n, n))
+    tlu.LU.update_rows = 0
+    F, P = Et.LU(_t(a), blocksize=blocksize)
+    assert tlu.LU.update_rows == rows
+    ell, u = _split_lu(F.global_array(), n)
+    assert np.linalg.norm(a[P.perm.numpy()] - ell @ u) \
+        / np.linalg.norm(a) < 1e-13
+
+
+def test_lu_exact_ties_vs_jax(one_device, monkeypatch):
+    """Integer entries in {-2, ..., 2} tie exactly in magnitude: the
+    pivots, which break ties on the row order the update keeps, equal the
+    JAX LU's (slab route on: _SLAB_INNER=16, nb=32), and the factor
+    agrees to 1e-12."""
+    for mod in (jlu, tlu):
+        monkeypatch.setattr(mod, "_SLAB_INNER", 16)
+    a = np.random.default_rng(46).integers(-2, 3, (96, 96)).astype(
+        np.float64)
+    JF, JP = jlu.LU(El.DistMatrix.from_global(a, grid=one_device),
+                    blocksize=32)
+    F, P = Et.LU(_t(a), blocksize=32)
+    np.testing.assert_array_equal(P.perm.numpy(), _perm(JP, 96))
+    assert _rel(F.global_array(), JF.global_array()) < 1e-12
+
+
+def test_lu_bf16_storage_three_slabs():
+    """bfloat16 storage at n=96, nb=32 (two trailing updates on the rows
+    not yet elected, in bf16): test_lu_bf16_storage's tolerance holds."""
+    a = np.random.default_rng(41).standard_normal((96, 96)).astype(np.float32)
+    tlu.LU.update_rows = 0
+    F, P = Et.LU(Et.DistMatrix.from_global(torch.tensor(a).bfloat16(),
+                                           grid=CPU), blocksize=32)
+    assert F.dtype == torch.bfloat16 and tlu.LU.update_rows == 96
+    ell, u = _split_lu(F.global_array().astype(np.float64), 96)
+    ab = torch.tensor(a).bfloat16().double().numpy()
+    assert np.abs(ab[P.perm.numpy()] - ell @ u).max() / np.abs(a).max() < 5e-2
+
+
 # ---------------------------------------------------------------------------
 # The step
 # ---------------------------------------------------------------------------
